@@ -1,0 +1,1 @@
+"""See the module of the same name under ``repro`` for the reference."""
