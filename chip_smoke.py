@@ -11,13 +11,23 @@ Phases, one JSON line each on stdout:
      card, at the main path's shapes (CRONet medium, 4 slots): cronet_fused
      at fp32 and bf16, solve_b_fused with a mix of need flags, an idle slot,
      a warm start and a shape-padded (elem_mask) batch; times of both.
-  3. serving — TopoServingEngine(device="cuda") on medium, 4 slots, serving
+  3. fusion — (a) each per-op kernel (conv2d, conv3d, gemm, maxpool2d,
+     adaptive_avg_pool2d/3d) against its plain version at CRONet medium's
+     layer shapes and at odd shapes, fp32 and bf16, timed beside its plain
+     version and the one PyTorch call for the same function; (b)
+     core.fusion.infer on the none / l1 / l2l3 paths at small, medium and
+     large (fp32) against core.cronet.forward at 1e-4, with the median
+     latency of 30 synchronised calls and the launches per call; every
+     per-op kernel must be launched by (b).
+  4. serving — TopoServingEngine(device="cuda") on medium, 4 slots, serving
      8 requests of 20 iterations (the MBB case plus off-distribution point
-     loads) once with error_threshold=0.1 and once with 1e9; both kernels
-     must be launched by that phase.
-  4. contracts — one tick at width 4 equals the same slots' tick at width 2
+     loads) once with error_threshold=0.1 and once with 1e9; cronet_fused
+     and solve_b_fused must be launched by that phase.
+  5. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
-Then the card's nvidia-smi line, one `kernels` JSON line, and last
+Then the card's nvidia-smi line, one `kernels` JSON line (each kernel's
+launches from the phase that drives its path: serving for cronet_fused and
+solve_b_fused, fusion (b) for the per-op kernels), and last
 {"ok": true, "device": {...}}. Exits nonzero, without the ok line, when
 there is no CUDA GPU, when the port is not beside this script, or when
 any phase fails. Imports nothing of JAX or of the JAX package.
@@ -25,6 +35,7 @@ any phase fails. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -71,6 +82,33 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call: `reps` calls captured in one CUDA
+    graph, replayed `replays` times between CUDA events, so the host's
+    Python and launch overhead is out of the time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def problems(fea2d, cfg, n, seed=0):
@@ -239,6 +277,259 @@ def phase_kernels(ctx):
         raise AssertionError("a kernel disagrees with its plain version")
 
 
+def _valid_taps(n: int, k: int, causal: bool) -> int:
+    """Taps of a k-wide filter that land inside n inputs, summed over the n
+    outputs: SAME (centred) or causal (d .. d+k-1) padding."""
+    lo = 0 if causal else k // 2
+    return sum(1 for o in range(n) for t in range(k) if 0 <= o + t - lo < n)
+
+
+def fusion_cases(cfg):
+    """The per-op calls of one CRONet forward on the l1 path, per kernel:
+    (label, times per forward, shape arguments)."""
+    H, W = cfg.nodes
+    T, ny, nx = cfg.hist_len, cfg.nely, cfg.nelx
+    return {
+        "conv3d": [("trunk1", 1, dict(x=(1, cfg.t_depth, H, W, 1),
+                                      w=(2, 3, 3, 1, cfg.t_c1),
+                                      depth_padding="causal_same")),
+                   ("trunk2", 1, dict(x=(1, cfg.t_depth, H, W, cfg.t_c1),
+                                      w=(1, 3, 3, cfg.t_c1, cfg.t_c2),
+                                      depth_padding="same"))],
+        "conv2d": [("branch1", 1, dict(x=(T, ny, nx, 1),
+                                       w=(3, 3, 1, cfg.b_c1))),
+                   ("branch2", 1, dict(x=(T, ny, nx, cfg.b_c1),
+                                       w=(3, 3, cfg.b_c1, cfg.b_c2))),
+                   ("odd_7x9", 0, dict(x=(2, 7, 9, 3), w=(3, 3, 3, 5)))],
+        "gemm": [("trunk_fc1", 1, dict(m=1, k=cfg.trunk_features, n=cfg.mid,
+                                       act="silu")),
+                 ("fc2", 2, dict(m=1, k=cfg.mid, n=cfg.p, act=None)),
+                 ("rnn_wx", T, dict(m=1, k=cfg.branch_features,
+                                    n=cfg.rnn_hidden, act=None)),
+                 ("rnn_wh", T, dict(m=1, k=cfg.rnn_hidden, n=cfg.rnn_hidden,
+                                    act=None)),
+                 ("branch_fc1", 1, dict(m=1, k=cfg.rnn_hidden, n=cfg.mid,
+                                        act="silu")),
+                 ("odd_33x70x9", 0, dict(m=33, k=70, n=9, act="tanh"))],
+        "maxpool2d": [("branch", 1, dict(x=(T, ny, nx, cfg.b_c2))),
+                      ("odd_7x9", 0, dict(x=(3, 7, 9, 8)))],
+        "adaptive_avg_pool2d": [("branch", 1, dict(
+            x=(T, ny // 2, nx // 2, cfg.b_c2), out=cfg.b_pool)),
+            ("odd_7x9", 0, dict(x=(2, 7, 9, 6), out=(3, 4)))],
+        "adaptive_avg_pool3d": [("trunk", 1, dict(
+            x=(1, cfg.t_depth, H, W, cfg.t_c2), out=cfg.t_pool))],
+    }
+
+
+def fusion_call(name, args, dt, dev, gen):
+    """(kernel call, plain call, library call, bytes, flops) for one case,
+    on inputs made from ``gen``; the library call is the one PyTorch call
+    that computes the same function (without a fused activation)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv, gemm, pool
+
+    def rand(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dt).to(dev)
+
+    es = torch.empty((), dtype=dt).element_size()
+    if name in ("conv2d", "conv3d"):
+        x, w = rand(args["x"], 0.5), rand(args["w"], 0.3)
+        cin, cout = w.shape[-2:]
+        if name == "conv2d":
+            B, H, W_ = x.shape[:3]
+            D, kd, causal = 1, 1, False
+            xc = x.permute(0, 3, 1, 2)                  # channels_last view
+            wc = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            lib = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
+            kern = lambda fs: conv.conv2d(x, w, fuse_silu=fs)  # noqa: E731
+            plain = lambda fs: conv.conv2d_plain(x, w, fuse_silu=fs)  # noqa
+        else:
+            B, D, H, W_ = x.shape[:4]
+            kd = w.shape[0]
+            dp = args["depth_padding"]
+            causal = dp == "causal_same"
+            xc = x.permute(0, 4, 1, 2, 3)
+            wc = w.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            # symmetric depth padding kd-1: its last D slices are the
+            # causal output (one extra slice of work for kd = 2)
+            lib = lambda: F.conv3d(xc, wc, padding=(kd - 1, 1, 1))  # noqa
+            kern = lambda fs: conv.conv3d(x, w, depth_padding=dp,  # noqa
+                                          fuse_silu=fs)
+            plain = lambda fs: conv.conv3d_plain(  # noqa: E731
+                x, w, depth_padding=dp, fuse_silu=fs)
+        macs = (B * _valid_taps(D, kd, causal) * _valid_taps(H, 3, False)
+                * _valid_taps(W_, 3, False) * cin * cout)
+        nbytes = es * (x.numel() + w.numel() + B * D * H * W_ * cout)
+        return kern, plain, lib, nbytes, 2.0 * macs
+    if name == "gemm":
+        m, k, n = args["m"], args["k"], args["n"]
+        x, w = rand((m, k), 0.3), rand((k, n), 0.3)
+        act = args["act"]
+        return (lambda fs: gemm.gemm(x, w, activation=act),
+                lambda fs: gemm.gemm_plain(x, w, act),
+                lambda: torch.matmul(x, w),
+                es * (m * k + k * n + m * n), 2.0 * m * k * n)
+    x = rand(args["x"])
+    if name == "maxpool2d":
+        B, H, W_, C = x.shape
+        xc = x.permute(0, 3, 1, 2)
+        return (lambda fs: pool.maxpool2d(x, 2),
+                lambda fs: pool.maxpool2d_plain(x, 2),
+                lambda: F.max_pool2d(xc, 2),
+                es * (x.numel() + B * (H // 2) * (W_ // 2) * C),
+                3.0 * B * (H // 2) * (W_ // 2) * C)
+    out = args["out"]
+    dims = x.shape[1:-1]
+    adds = x.shape[0] * x.shape[-1]
+    for n_in, n_out in zip(dims, out):
+        s, e = pool.adaptive_bounds(n_in, n_out)
+        adds *= sum(b - a for a, b in zip(s, e))
+    nbytes = es * (x.numel() + x.shape[0] * x.shape[-1] * math.prod(out))
+    if name == "adaptive_avg_pool2d":
+        xc = x.permute(0, 3, 1, 2)
+        return (lambda fs: pool.adaptive_avg_pool2d(x, out),
+                lambda fs: pool.adaptive_avg_pool2d_plain(x, out),
+                lambda: F.adaptive_avg_pool2d(xc, out), nbytes, float(adds))
+    xc = x.permute(0, 4, 1, 2, 3)
+    return (lambda fs: pool.adaptive_avg_pool3d(x, out),
+            lambda fs: pool.adaptive_avg_pool3d_plain(x, out),
+            lambda: F.adaptive_avg_pool3d(xc, out), nbytes, float(adds))
+
+
+FUSION_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-1)}
+FUSION_SOURCES = {
+    "conv2d": ("conv.cu", "src/repro/kernels/conv.py:44"),
+    "conv3d": ("conv.cu", "src/repro/kernels/conv.py:82"),
+    "gemm": ("gemm.cu", "src/repro/kernels/gemm.py:48"),
+    "maxpool2d": ("pool.cu", "src/repro/kernels/pool.py:34"),
+    "adaptive_avg_pool2d": ("pool.cu", "src/repro/kernels/pool.py:58"),
+    "adaptive_avg_pool3d": ("pool.cu", "src/repro/kernels/pool.py:89"),
+}
+
+
+def phase_fusion(ctx):
+    """(a) each per-op kernel against its plain version at CRONet medium's
+    layer shapes and odd shapes, fp32 and bf16, timed beside its plain
+    version and the one PyTorch call for the same function; (b)
+    fusion.infer on none / l1 / l2l3 at small, medium and large (fp32)
+    against core.cronet.forward, with latency and launches per call."""
+    import dataclasses
+    import functools
+    import statistics
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common import init_params
+    from repro_torch.configs.cronet import get_cronet_config
+    from repro_torch.core import cronet, fusion
+    from repro_torch.fea import fea2d
+    dev = ctx["device"]
+    gen = torch.Generator().manual_seed(1)
+    ok_all, per_kernel = True, {}
+    for name, cases in fusion_cases(ctx["cfg"]).items():
+        rep = {"cases": {}, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "call_ms": 0.0, "bytes": 0.0, "flops": 0.0,
+               "max_abs_err": 0.0}
+        for label, per_fwd, args in cases:
+            for dname, dt in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+                kern, plain, lib, nbytes, flops = fusion_call(
+                    name, args, dt, dev, gen)
+                rtol, atol = FUSION_TOL[dname]
+                errs, ok = [], True
+                for fs in (False, True):     # convolutions: SiLU off / on
+                    out, ref = kern(fs), plain(fs)
+                    sync()
+                    ok = ok and out.dtype == dt and bool(torch.allclose(
+                        out.float(), ref.float(), rtol=rtol, atol=atol))
+                    errs.append(float((out.float() - ref.float())
+                                      .abs().max()))
+                ok_all = ok_all and ok
+                case = {"max_abs_err": max(errs), "ok": ok,
+                        "tol": f"rtol={rtol} atol={atol}"}
+                if dname == "float32":      # timed as the l1 path calls it
+                    case.update(
+                        ms=graph_ms(lambda: kern(True)),
+                        plain_ms=graph_ms(lambda: plain(True)),
+                        library_ms=graph_ms(lib),
+                        call_ms=cuda_ms(lambda: kern(True), reps=50),
+                        **bound(nbytes, flops, H100_FP32_FLOPS))
+                    rep["max_abs_err"] = max(rep["max_abs_err"], max(errs))
+                    if per_fwd:
+                        for key in ("ms", "plain_ms", "library_ms",
+                                    "call_ms"):
+                            rep[key] += per_fwd * case[key]
+                        rep["bytes"] += per_fwd * nbytes
+                        rep["flops"] += per_fwd * flops
+                rep["cases"][f"{label}/{dname}"] = case
+        per_kernel[name] = rep
+        emit({"phase": "fusion_kernel", "name": name, **rep})
+
+    # (b) the three paths, driven through fusion.infer
+    paths = {"none": fusion.FusionConfig(False, False, False),
+             "l1": fusion.FusionConfig(True, False, False),
+             "l2l3": fusion.FusionConfig(True, True, True)}
+    kernels.reset_launch_counts()
+    latency, graphed = {}, {}
+    for size in ("small", "medium", "large"):
+        cfg = dataclasses.replace(get_cronet_config(size), dtype="float32")
+        params = init_params(cfg, seed=0, device=dev)
+        bp = fea2d.stack_problems([fea2d.mbb_problem(cfg.nelx, cfg.nely)],
+                                  device=dev)
+        lv = fea2d.load_volume_b(bp)[0]
+        hist = torch.rand((cfg.hist_len, cfg.nely, cfg.nelx, 1),
+                          generator=gen).to(dev)
+        ref = cronet.forward(cfg, params, lv[None], hist[None])[0]
+        for pname, fc in paths.items():
+            out = fusion.infer(cfg, params, lv, hist, fc)
+            sync()
+            err = float((out - ref).abs().max())
+            ok = bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-4))
+            ok = ok and out.shape == ref.shape and bool(
+                torch.isfinite(out).all())
+            ok_all = ok_all and ok
+            for _ in range(5):                   # warm-up
+                fusion.infer(cfg, params, lv, hist, fc)
+            before = sum(kernels.launch_counts().values())
+            walls = []
+            for _ in range(30):
+                t0 = time.perf_counter()
+                fusion.infer(cfg, params, lv, hist, fc)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            per_call = (sum(kernels.launch_counts().values()) - before) / 30
+            graphed[f"{pname}/{size}"] = functools.partial(
+                fusion.infer, cfg, params, lv, hist, fc)
+            latency[f"{pname}/{size}"] = {
+                "median_ms": statistics.median(walls), "min_ms": min(walls),
+                "launches_per_call": per_call, "max_abs_err": err,
+                "tol": "rtol=atol=1e-4", "ok": ok}
+    counts = kernels.launch_counts()
+    ctx["fusion_launches"] = counts
+    # device time of a forward without the host: the path in a CUDA graph
+    # (after the counts are read: capture is not a run of the path)
+    for key, fn in graphed.items():
+        latency[key]["graph_device_ms"] = graph_ms(fn, reps=5)
+    emit({"phase": "fusion", "latency_ms": latency, "launches": counts})
+
+    for name, rep in per_kernel.items():
+        src, replaces = FUSION_SOURCES[name]
+        ctx["rows"][name] = dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=replaces, max_abs_err=rep["max_abs_err"], ms=rep["ms"],
+            call_ms=rep["call_ms"], plain_ms=rep["plain_ms"],
+            **bound(rep["bytes"], rep["flops"], H100_FP32_FLOPS),
+            library_ms=rep["library_ms"])
+    if not ok_all:
+        raise AssertionError("a per-op kernel or a fusion path disagrees "
+                             "with its plain version")
+    missing = [n for n in FUSION_SOURCES if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"fusion paths never launched {missing}")
+
+
 def bound(nbytes: float, flops: float, peak: float) -> dict:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -286,7 +577,7 @@ def phase_serving(ctx):
           "requests": 8, "n_iter": 20, "runs": runs, "launches": counts})
     if sum(runs["1000000000.0"]["cronet_iters"]) == 0:
         raise AssertionError("surrogate never accepted at threshold 1e9")
-    if min(counts.values()) == 0:
+    if min(counts["cronet_fused"], counts["solve_b_fused"]) == 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
 
 
@@ -344,7 +635,8 @@ def main() -> int:
     from repro_torch.configs.cronet import get_cronet_config
     ctx = {"device": torch.device("cuda"), "cfg": get_cronet_config("medium")}
     t0 = time.perf_counter()
-    for phase in (phase_build, phase_kernels, phase_serving, phase_contracts):
+    for phase in (phase_build, phase_kernels, phase_fusion, phase_serving,
+                  phase_contracts):
         try:
             phase(ctx)
         except Exception:
@@ -353,7 +645,8 @@ def main() -> int:
             return 1
     kernels = []
     for name, row in ctx["rows"].items():
-        kernels.append({**row, "launches": ctx["launches"][name]})
+        phase = "fusion_launches" if name in FUSION_SOURCES else "launches"
+        kernels.append({**row, "launches": ctx[phase][name]})
     print(ctx["smi"], flush=True)
     emit({"total_s": time.perf_counter() - t0})
     emit({"kernels": kernels})

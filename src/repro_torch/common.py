@@ -50,7 +50,8 @@ def param_shapes(cfg: CRONetConfig) -> Dict[str, Dict[str, Tuple[int, ...]]]:
     }
 
 
-def _dtype(name: str) -> torch.dtype:
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config dtype name ("float32", "bfloat16")."""
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
@@ -66,7 +67,7 @@ def init_params(cfg: CRONetConfig, seed: int = 0, device="cuda",
     the same seed; tests carry JAX weights over with ``params_from_jax``.
     """
     dev = resolve_device(device)
-    dt = _dtype(dtype or cfg.dtype)
+    dt = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator().manual_seed(int(seed))
     out: Params = {}
     for part, shapes in sorted(param_shapes(cfg).items()):

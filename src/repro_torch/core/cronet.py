@@ -30,32 +30,14 @@ from torch import nn
 
 from repro_torch.common import Params, param_shapes
 from repro_torch.configs.cronet import CRONetConfig
-
-
-def _conv3d(x, w, depth_padding: str):
-    """x: (B, D, H, W, Cin); w: (kd, kh, kw, Cin, Cout). 'causal_same'
-    pads depth (0, kd-1); spatial SAME (cronet.py:65-79)."""
-    kd, kh, kw = w.shape[:3]
-    pad_d = kd - 1 if depth_padding == "causal_same" else 0
-    xc = x.permute(0, 4, 1, 2, 3)                       # NCDHW
-    xc = F.pad(xc, (kw // 2, kw // 2, kh // 2, kh // 2, 0, pad_d))
-    y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2))          # OIDHW
-    return y.permute(0, 2, 3, 4, 1)
-
-
-def _conv2d_same(x, w):
-    """x: (B, H, W, Cin); w: (kh, kw, Cin, Cout)."""
-    kh, kw = w.shape[:2]
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 padding=(kh // 2, kw // 2))
-    return y.permute(0, 2, 3, 1)
+from repro_torch.kernels import ref
 
 
 def _trunk_one(cfg: CRONetConfig, p, load_vol):
-    x = F.silu(_conv3d(load_vol, p["conv1"], "causal_same"))
-    x = F.silu(_conv3d(x, p["conv2"], "same"))          # (1, D, H, W, 64)
-    x = F.adaptive_avg_pool3d(x.permute(0, 4, 1, 2, 3), cfg.t_pool)
-    x = x.permute(0, 2, 3, 4, 1).reshape(1, -1)         # (d, h, w, c) order
+    x = F.silu(ref.conv3d(load_vol, p["conv1"], "causal_same"))
+    x = F.silu(ref.conv3d(x, p["conv2"], "same"))       # (1, D, H, W, 64)
+    x = ref.adaptive_avg_pool3d(x, cfg.t_pool)
+    x = x.reshape(1, -1)                                # (d, h, w, c) order
     x = F.silu(x @ p["fc1"])
     return x @ p["fc2"]
 
@@ -63,11 +45,11 @@ def _trunk_one(cfg: CRONetConfig, p, load_vol):
 def _branch_one(cfg: CRONetConfig, p, hist):
     t = hist.shape[1]
     x = hist.reshape(t, *hist.shape[2:])                # (T, ny, nx, 1)
-    x = F.silu(_conv2d_same(x, p["conv1"]))
-    x = F.silu(_conv2d_same(x, p["conv2"]))
-    x = F.max_pool2d(x.permute(0, 3, 1, 2), 2)          # floor: edge dropped
-    x = F.adaptive_avg_pool2d(x, cfg.b_pool)
-    feats = x.permute(0, 2, 3, 1).reshape(1, t, -1)     # (1, T, 32)
+    x = F.silu(ref.conv2d_same(x, p["conv1"]))
+    x = F.silu(ref.conv2d_same(x, p["conv2"]))
+    x = ref.maxpool2d(x, 2)                             # floor: edge dropped
+    x = ref.adaptive_avg_pool2d(x, cfg.b_pool)
+    feats = x.reshape(1, t, -1)                         # (1, T, 32)
     h = torch.zeros((1, cfg.rnn_hidden), dtype=feats.dtype,
                     device=feats.device)
     for i in range(t):

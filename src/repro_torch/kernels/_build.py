@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``build/kernels/lib<name>-<hash>.so`` under the repository root
 (the hash covers the source and the flags, so an edited source rebuilds).
 The build happens at first use and never at import; ``build_all`` starts one
-nvcc per source at once and waits for all of them.
+nvcc per source at once and waits for all of them. ``function``,
+``dtype_code``, ``device_stream`` and ``check`` are the ctypes plumbing the
+wrappers share.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -28,6 +30,9 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 SOURCES: Dict[str, list] = {
     "cronet_fused": [],
     "cg_fused": ["--fmad=false"],
+    "conv": [],
+    "gemm": [],
+    "pool": [],
 }
 
 _lock = threading.Lock()
@@ -92,6 +97,34 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def function(source: str, name: str, restype, argtypes):
+    """``(lib, fn)``: the C entry point ``name`` of ``csrc/<source>.cu``,
+    built and loaded first if needed, with its ctypes signature set."""
+    lib = load(source)
+    fn = getattr(lib, name)
+    fn.restype = restype
+    fn.argtypes = argtypes
+    return lib, fn
+
+
+def dtype_code(t) -> int:
+    """The C entry points' dtype code of a tensor: 0 float32, 1 bfloat16."""
+    import torch
+    code = {torch.float32: 0, torch.bfloat16: 1}.get(t.dtype)
+    if code is None:
+        raise TypeError(f"dtype {t.dtype}: the kernels take float32 or "
+                        "bfloat16")
+    return code
+
+
+def device_stream(device) -> Tuple[int, int]:
+    """(device index, handle of its current stream) for a CUDA device."""
+    import torch
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, name: str, err: int):

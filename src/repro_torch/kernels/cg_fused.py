@@ -66,14 +66,10 @@ def solve_b_plain(bp: "fea2d.BatchProblem", X, tol: float = 1e-6,
 
 
 def _lib():
-    lib = _build.load("cg_fused")
-    fn = lib.cg_fused_solve
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14
-                   + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    return lib, fn
+    return _build.function(
+        "cg_fused", "cg_fused_solve", ctypes.c_int,
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def solve_b_fused(bp: "fea2d.BatchProblem", X, tol: float = 1e-6,
@@ -114,8 +110,7 @@ def solve_b_fused(bp: "fea2d.BatchProblem", X, tol: float = 1e-6,
     err = fn(*[0 if t is None else t.data_ptr() for t in ins],
              U_out.data_ptr(), its.data_ptr(), B, nelx, nely, pow2,
              float(bp.e_min), float(1 - bp.e_min), float(tol), int(max_iter),
-             dev.index if dev.index is not None else torch.cuda.current_device(),
-             torch.cuda.current_stream(dev).cuda_stream)
+             *_build.device_stream(dev))
     _build.check(lib, "cg_fused", err)
     solve_b_fused.launches += 1
     return U_out, its

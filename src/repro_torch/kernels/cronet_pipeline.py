@@ -31,7 +31,6 @@ _WEIGHTS = [("trunk", "conv1"), ("trunk", "conv2"), ("trunk", "fc1"),
             ("trunk", "fc2"), ("branch", "conv1"), ("branch", "conv2"),
             ("branch", "rnn_wx"), ("branch", "rnn_wh"), ("branch", "fc1"),
             ("branch", "fc2")]
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def cronet_fused_plain(cfg: CRONetConfig, params: Params, load_vol, hist):
@@ -40,14 +39,11 @@ def cronet_fused_plain(cfg: CRONetConfig, params: Params, load_vol, hist):
 
 
 def _lib():
-    lib = _build.load("cronet_fused")
-    fn = lib.cronet_fused_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    return lib, fn
+    return _build.function(
+        "cronet_fused", "cronet_fused_forward", ctypes.c_int,
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_void_p])
 
 
 def cronet_fused(cfg: CRONetConfig, params: Params, load_vol: torch.Tensor,
@@ -59,9 +55,7 @@ def cronet_fused(cfg: CRONetConfig, params: Params, load_vol: torch.Tensor,
         return cronet_fused_plain(cfg, params, load_vol, hist)
     if load_vol.device.type != "cuda":
         raise ValueError(f"cronet_fused: unsupported device {load_vol.device}")
-    dt = load_vol.dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"cronet_fused: dtype {dt} (need float32 or bfloat16)")
+    dt, code = load_vol.dtype, _build.dtype_code(load_vol)
     ws = [params[a][b] for a, b in _WEIGHTS]
     for t in [hist, *ws]:
         if t.dtype != dt or t.device != load_vol.device:
@@ -91,11 +85,9 @@ def cronet_fused(cfg: CRONetConfig, params: Params, load_vol: torch.Tensor,
     c_dims = (ctypes.c_int * len(dims))(*dims)
     c_ws = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
     lib, fn = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_DTYPE_CODE[dt], lv.data_ptr(), hi.data_ptr(), c_ws,
+    err = fn(code, lv.data_ptr(), hi.data_ptr(), c_ws,
              S.data_ptr(), feats.data_ptr(), out.data_ptr(), c_dims,
-             dev.index if dev.index is not None else torch.cuda.current_device(),
-             stream)
+             *_build.device_stream(dev))
     _build.check(lib, "cronet_fused", err)
     cronet_fused.launches += 1
     return out
