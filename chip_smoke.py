@@ -19,15 +19,34 @@ Phases, one JSON line each on stdout:
      large (fp32) against core.cronet.forward at 1e-4, with the median
      latency of 30 synchronised calls and the launches per call; every
      per-op kernel must be launched by (b).
-  4. serving — TopoServingEngine(device="cuda") on medium, 4 slots, serving
+  4. breakdown — silu_lut and silu_exact against their plain versions at
+     fp32 and bf16 on 2^14 elements, on CRONet medium's largest SiLU input at
+     4 slots (768,000) and on 2^26 elements (a bandwidth reading), with the
+     tails, every table point and every midpoint (and their neighbouring
+     floats) among the inputs; then repro_torch.layer_breakdown.run at
+     medium (paper Fig 7), which must launch both SiLU kernels.
+  5. lm_kernels — (a) flash_attention (non-causal, the GQA fold) and
+     flash_attention_causal_gqa at qwen2.5-32b's attention widths (B 1,
+     S 4096, 40 q heads on 8 kv heads, D 128, bf16) against the port's
+     models.layers.attention (bf16 also element by element, a test that a
+     dropped key tile and a wrong kv head are shown to fail), again at fp32
+     with S 1024 and at the CPU tests' shapes, timed beside
+     F.scaled_dot_product_attention; (b) slstm_fused at xlstm-1.3b's widths
+     (B 8, S 4096, 4 heads of 512, fp32 wx) against ref.slstm_sequential,
+     the error over the first and the last 64 steps; at the JAX package's
+     init scale over 64 steps against the plain version in fp32 and
+     float64; and at the CPU tests' shapes.
+  6. serving — TopoServingEngine(device="cuda") on medium, 4 slots, serving
      8 requests of 20 iterations (the MBB case plus off-distribution point
      loads) once with error_threshold=0.1 and once with 1e9; cronet_fused
      and solve_b_fused must be launched by that phase.
-  5. contracts — one tick at width 4 equals the same slots' tick at width 2
+  7. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
-Then the card's nvidia-smi line, one `kernels` JSON line (each kernel's
-launches from the phase that drives its path: serving for cronet_fused and
-solve_b_fused, fusion (b) for the per-op kernels), and last
+Then the card's nvidia-smi line, one `kernels` JSON line (all twelve
+wrappers; each kernel's launches from the phase that drives its path:
+serving for cronet_fused and solve_b_fused, fusion (b) for the per-op
+kernels, breakdown's layer_breakdown.run for the SiLU kernels, lm_kernels'
+full-width calls for flash_attention and slstm_fused), and last
 {"ok": true, "device": {...}}. Exits nonzero, without the ok line, when
 there is no CUDA GPU, when the port is not beside this script, or when
 any phase fails. Imports nothing of JAX or of the JAX package.
@@ -47,6 +66,7 @@ SRC = ROOT / "src"
 U_SCALE = 50.0
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
+H100_BF16_FLOPS = 989e12        # bf16 on the tensor cores, dense
 
 
 def emit(obj):
@@ -66,49 +86,6 @@ def sync():
     import torch
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call, CUDA events around `reps` calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
-    """Device milliseconds per call: `reps` calls captured in one CUDA
-    graph, replayed `replays` times between CUDA events, so the host's
-    Python and launch overhead is out of the time."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):           # warm up off the capture
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
 
 
 def problems(fea2d, cfg, n, seed=0):
@@ -155,6 +132,7 @@ def phase_kernels(ctx):
     from repro_torch.core.cronet import count_macs
     from repro_torch.fea import fea2d, hybrid
     from repro_torch.kernels import cg_fused, cronet_pipeline
+    from repro_torch.timing import cuda_ms
     dev, cfg = ctx["device"], ctx["cfg"]
     B = 4
     gen = torch.Generator().manual_seed(0)
@@ -425,6 +403,7 @@ def phase_fusion(ctx):
     from repro_torch.configs.cronet import get_cronet_config
     from repro_torch.core import cronet, fusion
     from repro_torch.fea import fea2d
+    from repro_torch.timing import cuda_ms, graph_ms
     dev = ctx["device"]
     gen = torch.Generator().manual_seed(1)
     ok_all, per_kernel = True, {}
@@ -507,7 +486,6 @@ def phase_fusion(ctx):
                 "launches_per_call": per_call, "max_abs_err": err,
                 "tol": "rtol=atol=1e-4", "ok": ok}
     counts = kernels.launch_counts()
-    ctx["fusion_launches"] = counts
     # device time of a forward without the host: the path in a CUDA graph
     # (after the counts are read: capture is not a run of the path)
     for key, fn in graphed.items():
@@ -521,7 +499,7 @@ def phase_fusion(ctx):
             replaces=replaces, max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             call_ms=rep["call_ms"], plain_ms=rep["plain_ms"],
             **bound(rep["bytes"], rep["flops"], H100_FP32_FLOPS),
-            library_ms=rep["library_ms"])
+            library_ms=rep["library_ms"], launches=counts[name])
     if not ok_all:
         raise AssertionError("a per-op kernel or a fusion path disagrees "
                              "with its plain version")
@@ -536,6 +514,322 @@ def bound(nbytes: float, flops: float, peak: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
+
+
+def silu_inputs(n: int, gen):
+    """n fp32 values: normal draws (scale 4) after the cases where a table
+    lookup can go wrong: every table point and every midpoint between two
+    of them (the arithmetic midpoint and the fp32 value nearest the exact
+    tie of the index formula), each with its two neighbouring floats, and
+    the tails on both sides of -8 and 8."""
+    import torch
+    from repro_torch.kernels import ref, silu
+    grid = ref.linspace(silu.LO, silu.HI, silu.N_ENTRIES)
+    mids = grid[:-1] + (grid[1:] - grid[:-1]) / 2
+    ties = ((torch.arange(silu.N_ENTRIES - 1, dtype=torch.float64) + 0.5)
+            * (silu.HI - silu.LO) / (silu.N_ENTRIES - 1) + silu.LO).float()
+    pts = torch.cat([grid, mids, ties])
+    inf = torch.full_like(pts, math.inf)
+    tails = torch.tensor([-1e4, -20.0, -8.0, 8.0, 20.0, 1e4, 0.0, -0.0])
+    tails = torch.cat([tails, torch.nextafter(tails, tails * 2)])
+    special = torch.cat([pts, torch.nextafter(pts, inf),
+                         torch.nextafter(pts, -inf), tails])
+    x = torch.randn((n,), generator=gen) * 4
+    x[:special.numel()] = special
+    return x
+
+
+SILU_SIZES = {"layer_breakdown": 1 << 14,
+              "cronet_medium_conv2_4slots": 4 * 10 * 20 * 30 * 32,
+              "bandwidth": 1 << 26}
+SILU_SOURCES = {"silu_lut": "src/repro/kernels/silu.py:39",
+                "silu_exact": "src/repro/kernels/silu.py:58"}
+
+
+def phase_breakdown(ctx):
+    """silu_lut / silu_exact against their plain versions, then the paper's
+    Fig 7 layer breakdown (repro_torch.layer_breakdown) at medium."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels, layer_breakdown
+    from repro_torch.kernels import silu
+    from repro_torch.timing import graph_ms
+    dev = ctx["device"]
+    gen = torch.Generator().manual_seed(3)
+    pairs = {"silu_lut": (silu.silu_lut, silu.silu_lut_plain, None),
+             "silu_exact": (silu.silu_exact, silu.silu_exact_plain, F.silu)}
+    report, ok_all = {}, True
+    for label, n in SILU_SIZES.items():
+        x32 = silu_inputs(n, gen).to(dev)
+        reps = 5 if n > 1 << 22 else 20
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            x = x32.to(dt)
+            for name, (kern, plain, lib) in pairs.items():
+                out, ref = kern(x), plain(x)
+                sync()
+                err = float((out.float() - ref.float()).abs().max())
+                ok = (out.dtype == dt and out.shape == x.shape
+                      and err <= 1e-6)
+                ok_all = ok_all and ok
+                case = {"n": n, "max_abs_err": err, "tol": 1e-6, "ok": ok,
+                        "bitwise": bool(torch.equal(out, ref))}
+                if dname == "float32":
+                    case.update(
+                        ms=graph_ms(lambda: kern(x), reps=reps),
+                        plain_ms=graph_ms(lambda: plain(x), reps=reps),
+                        library_ms=(graph_ms(lambda: lib(x), reps=reps)
+                                    if lib else None),
+                        **bound(8.0 * n, 4.0 * n, H100_FP32_FLOPS))
+                    case["gb_per_s"] = case["bytes"] / case["ms"] / 1e6
+                report[f"{name}/{label}/{dname}"] = case
+    # the path: Fig 7's layer breakdown, both SiLU kernels included
+    kernels.reset_launch_counts()
+    rows = layer_breakdown.run("medium", device=dev)
+    counts = kernels.launch_counts()
+    emit({"phase": "breakdown", "silu": report, "fig7_medium": rows,
+          "launches": counts})
+    for name, replaces in SILU_SOURCES.items():
+        main = report[f"{name}/layer_breakdown/float32"]
+        ctx["rows"][name] = dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/silu.cu",
+            replaces=replaces, launches=counts[name],
+            max_abs_err=max(c["max_abs_err"] for key, c in report.items()
+                            if key.startswith(name + "/")),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "bytes", "flops",
+                                          "library_ms")})
+    if not ok_all:
+        raise AssertionError("a SiLU kernel disagrees with its plain version")
+    missing = [n for n in SILU_SOURCES if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"the layer breakdown never launched {missing}")
+
+
+def sdpa(q, k, v, causal):
+    """F.scaled_dot_product_attention on (B, S, H, D) tensors with grouped
+    kv heads: the yardstick for the flash kernel, never called by the
+    port."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal,
+        enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+
+# Flash against models.layers.attention: max |err| <= 2e-5 at fp32 and
+# 3e-2 at bf16, and at bf16 also |err| <= 2e-3 + 1e-2 |ref| element by
+# element. Two bf16 values one ulp apart differ by at most 2^-7 |ref|, so
+# an output rounded the other way passes; one dropped 64-key tile or a
+# wrong kv head moves it by far more, and the full-width run checks that
+# those two stand-ins fail the same test.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 2e-3
+SLSTM_TOL = 1e-4
+
+
+def flash_excess(out, want) -> float:
+    """Largest |out - want| / (atol + rtol |want|) of the bf16 elementwise
+    test: at most 1 passes."""
+    o, w = out.float(), want.float()
+    return float(((o - w).abs()
+                  / (FLASH_BF16_ATOL + FLASH_BF16_RTOL * w.abs())).max())
+
+
+def phase_lm_kernels(ctx):
+    """(a) the flash kernel at qwen2.5-32b's attention widths, (b) the fused
+    sLSTM at xlstm-1.3b's widths, each against its plain version."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.lm import get_lm_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_causal_gqa)
+    from repro_torch.kernels.slstm import launch_plan, slstm_fused
+    from repro_torch.timing import cuda_ms
+    dev = ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    qc, xc = get_lm_config("qwen2.5-32b"), get_lm_config("xlstm-1.3b")
+    S, bf16, f32 = 4096, torch.bfloat16, torch.float32
+
+    def qkv(b, sq, sk, hq, hkv, d, dt, scale=1.0):
+        return (randn((b, sq, hq, d), dt, scale),
+                randn((b, sk, hkv, d), dt, scale),
+                randn((b, sk, hkv, d), dt, scale))
+
+    def flash(q, k, v, causal, **blocks):
+        if causal:
+            return flash_attention_causal_gqa(q, k, v, **blocks)
+        return flash_attention(q, k, v, causal=False, **blocks)
+
+    q, k, v = qkv(1, S, S, qc.num_heads, qc.num_kv_heads, qc.head_dim, bf16)
+    B, nh = 8, xc.num_heads
+    dh = xc.d_model // nh
+    # fp32 wx as apply_slstm_block feeds it; R scaled by 1/sqrt(dh), the
+    # fan-in of the recurrent product (see PERF.md on the conditioning)
+    wx = randn((B, S, 4 * xc.d_model), f32)
+    r = randn((nh, dh, 4 * dh), f32, dh ** -0.5)
+
+    # the path: both flash entry points and the sLSTM at full width
+    kernels.reset_launch_counts()
+    outs = {False: flash(q, k, v, False), True: flash(q, k, v, True)}
+    h = slstm_fused(wx, r)
+    sync()
+    counts = kernels.launch_counts()
+
+    ok_all, fl = True, {}
+
+    def check(label, q, k, v, causal, out=None, **blocks):
+        nonlocal ok_all
+        dname = str(q.dtype).split(".")[-1]
+        o = flash(q, k, v, causal, **blocks) if out is None else out
+        rf = ref.attention(q, k, v, causal=causal)
+        sync()
+        err = float((o.float() - rf.float()).abs().max())
+        ok = (o.shape == rf.shape and o.dtype == q.dtype
+              and bool(torch.isfinite(o).all()) and err <= FLASH_TOL[dname])
+        case = {"shape": list(q.shape), "kv_heads": k.shape[2],
+                "max_abs_err": err, "tol": FLASH_TOL[dname],
+                "max_abs_ref": float(rf.float().abs().max())}
+        if q.dtype == torch.bfloat16:
+            case["excess"] = flash_excess(o, rf)
+            case["elementwise_tol"] = (f"{FLASH_BF16_ATOL} + "
+                                       f"{FLASH_BF16_RTOL} |ref|")
+            ok = ok and case["excess"] <= 1.0
+        case["ok"] = ok
+        ok_all = ok_all and ok
+        fl[f"{label}/{'causal' if causal else 'noncausal'}/{dname}"] = case
+        return err
+
+    full_err = [check("qwen_S4096", q, k, v, c, out=outs[c])
+                for c in (False, True)]
+    del outs
+    # the bf16 test must fail a reference that drops the last 64-key tile,
+    # and one that maps q head h to kv head h % Hkv instead of h // g
+    want = ref.attention(q, k, v, causal=False)
+    wrong = [h_ % qc.num_kv_heads for h_ in range(qc.num_heads)]
+    stand_ins = {
+        "last_64_keys_dropped": ref.attention(
+            q, k, v, causal=False,
+            kv_len=torch.full((1,), S - 64, device=dev)),
+        "kv_head_h_mod_hkv": ref.attention(q, k[:, :, wrong], v[:, :, wrong],
+                                           causal=False)}
+    sensitivity = {name: flash_excess(o, want)
+                   for name, o in stand_ins.items()}
+    fl["qwen_S4096/stand_ins_must_fail"] = sensitivity
+    del want, stand_ins
+    if min(sensitivity.values()) <= 1.0:
+        raise AssertionError(f"the bf16 flash test passes a wrong "
+                             f"attention: {sensitivity}")
+    times = {}
+    for c in (False, True):
+        times[c] = dict(
+            ms=cuda_ms(lambda: flash(q, k, v, c), reps=3),
+            plain_ms=cuda_ms(lambda: ref.attention(q, k, v, causal=c),
+                             reps=2),
+            library_ms=cuda_ms(lambda: sdpa(q, k, v, c), reps=10))
+        fl[f"qwen_S4096/{'causal' if c else 'noncausal'}/bfloat16"].update(
+            times[c])
+    q32, k32, v32 = qkv(1, 1024, 1024, qc.num_heads, qc.num_kv_heads,
+                        qc.head_dim, f32)
+    for c in (False, True):
+        check("qwen_S1024", q32, k32, v32, c)
+        fl[f"qwen_S1024/{'causal' if c else 'noncausal'}/float32"].update(
+            ms=cuda_ms(lambda: flash(q32, k32, v32, c), reps=3),
+            library_ms=cuda_ms(lambda: sdpa(q32, k32, v32, c), reps=10))
+    del q32, k32, v32
+    for sq, sk, hq, hkv, d in ((256, 256, 4, 4, 32), (512, 512, 8, 2, 16),
+                               (256, 512, 2, 2, 64)):
+        small = qkv(2, sq, sk, hq, hkv, d, f32, 0.5)
+        for c in ((False, True) if sq == sk else (False,)):
+            check(f"cpu_tests_{sq}x{sk}x{hq}x{hkv}x{d}", *small, c,
+                  block_q=128, block_k=128)
+    check("cpu_tests_bf16", *qkv(1, 256, 256, 2, 2, 32, bf16, 0.5), True,
+          block_q=128, block_k=128)
+
+    hq, hkv, d = qc.num_heads, qc.num_kv_heads, qc.head_dim
+    pairs = S * S + S * (S + 1) // 2           # non-causal + causal
+    flops = 4.0 * hq * d * pairs
+    nbytes = 2.0 * 2 * (2 * S * hq * d + 2 * S * hkv * d)
+    ctx["rows"]["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:72",
+        launches=counts["flash_attention"], max_abs_err=max(full_err),
+        **{key: sum(t[key] for t in times.values())
+           for key in ("ms", "plain_ms", "library_ms")},
+        **bound(nbytes, flops, H100_BF16_FLOPS))
+
+    # (b) the sLSTM: the full-width run above against the plain loop
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    h_ref = ref.slstm_sequential(wx, r)
+    end.record()
+    sync()
+    plain_ms = start.elapsed_time(end)
+    e = (h - h_ref).abs()
+    sl = {"full": {"shape": [B, S, nh, dh], "plan": launch_plan(B, nh, dh),
+                   "max_abs_err": float(e.max()),
+                   "max_abs_err_first64": float(e[:, :64].max()),
+                   "max_abs_err_last64": float(e[:, -64:].max()),
+                   "tol": SLSTM_TOL, "finite": bool(torch.isfinite(h).all())}}
+    sl["full"]["ok"] = sl["full"]["finite"] and float(e.max()) <= SLSTM_TOL
+    del h, h_ref, e
+    k_ms = cuda_ms(lambda: slstm_fused(wx, r), reps=3)
+    sl["full"].update(ms=k_ms, plain_ms=plain_ms)
+    for b, s, nh_, dh_, tb, bt in ((2, 64, 2, 8, 16, 2), (2, 64, 2, 8, 64, 1),
+                                   (3, 50, 2, 12, 25, 3)):
+        wx_s = randn((b, s, 4 * nh_ * dh_), f32)
+        r_s = randn((nh_, dh_, 4 * dh_), f32, 0.3)
+        o = slstm_fused(wx_s, r_s, time_block=tb, batch_tile=bt)
+        err = float((o - ref.slstm_sequential(wx_s, r_s)).abs().max())
+        sl[f"small_{b}x{s}x{nh_}x{dh_}_tb{tb}_bt{bt}"] = {
+            "max_abs_err": err, "ok": err <= SLSTM_TOL,
+            "plan": launch_plan(b, nh_, dh_)}
+    # the JAX package's init for xlstm-1.3b, R ~ N(0, 1/6), where the fp32
+    # recurrence is chaotic (PERF.md): the kernel is held to the plain
+    # version at 1e-4 over the first 4 steps, and over 64 steps its error
+    # against the float64 plain version stays within 4x the fp32 plain
+    # version's own, step by step, until that reaches 0.1
+    wx_j = randn((B, 64, 4 * xc.d_model), f32)
+    r_j = randn((nh, dh, 4 * dh), f32, 6 ** -0.5)
+    h_j = slstm_fused(wx_j, r_j)
+    p32 = ref.slstm_sequential(wx_j, r_j)
+    p64 = ref.slstm_sequential(wx_j.double(), r_j.double())
+    e_plain = (h_j - p32).abs().amax(dim=(0, 2))
+    e_k64 = (h_j.double() - p64).abs().amax(dim=(0, 2))
+    e_p64 = (p32.double() - p64).abs().amax(dim=(0, 2))
+    live = e_p64 < 0.1
+    ratio = (e_k64 / e_p64.clamp_min(1e-12))[live]
+    sl["jax_init_S64"] = {
+        "r_std": 6 ** -0.5, "max_abs_err_first4": float(e_plain[:4].max()),
+        "tol_first4": SLSTM_TOL, "steps_before_fp32_err_0.1": int(live.sum()),
+        "err_vs_fp64_kernel": e_k64.tolist(),
+        "err_vs_fp64_plain": e_p64.tolist(),
+        "max_ratio_kernel_to_plain": float(ratio.max()),
+        "ok": (float(e_plain[:4].max()) <= SLSTM_TOL and bool(
+            (e_k64[live] <= 4 * e_p64[live] + 1e-6).all()))}
+    del wx_j, h_j, p32, p64
+    ok_sl = all(case["ok"] for case in sl.values())
+    ctx["rows"]["slstm_fused"] = dict(
+        name="slstm_fused", route="cuda", source="src/repro_torch/csrc/slstm.cu",
+        replaces="src/repro/kernels/slstm.py:78",
+        launches=counts["slstm_fused"], max_abs_err=sl["full"]["max_abs_err"], ms=k_ms, plain_ms=plain_ms,
+        library_ms=None,
+        **bound(4.0 * (wx.numel() + B * S * nh * dh + r.numel()),
+                2.0 * B * S * nh * dh * 4 * dh, H100_FP32_FLOPS))
+    emit({"phase": "lm_kernels", "flash_attention": fl, "slstm": sl,
+          "launches": counts})
+    if not (ok_all and ok_sl):
+        raise AssertionError("an LM kernel disagrees with its plain version")
+    missing = [n for n in ("flash_attention", "slstm_fused") if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"the LM kernel path never launched {missing}")
 
 
 def phase_serving(ctx):
@@ -572,7 +866,8 @@ def phase_serving(ctx):
             raise AssertionError(f"threshold {thr}: unfinished or "
                                  "non-finite request")
     counts = kernels.launch_counts()
-    ctx["launches"] = counts
+    for name in ("cronet_fused", "solve_b_fused"):
+        ctx["rows"][name]["launches"] = counts[name]
     emit({"phase": "serving", "mesh": f"{cfg.nelx}x{cfg.nely}", "slots": 4,
           "requests": 8, "n_iter": 20, "runs": runs, "launches": counts})
     if sum(runs["1000000000.0"]["cronet_iters"]) == 0:
@@ -635,21 +930,17 @@ def main() -> int:
     from repro_torch.configs.cronet import get_cronet_config
     ctx = {"device": torch.device("cuda"), "cfg": get_cronet_config("medium")}
     t0 = time.perf_counter()
-    for phase in (phase_build, phase_kernels, phase_fusion, phase_serving,
-                  phase_contracts):
+    for phase in (phase_build, phase_kernels, phase_fusion, phase_breakdown,
+                  phase_lm_kernels, phase_serving, phase_contracts):
         try:
             phase(ctx)
         except Exception:
             traceback.print_exc()
             print(f"chip_smoke: {phase.__name__} failed", file=sys.stderr)
             return 1
-    kernels = []
-    for name, row in ctx["rows"].items():
-        phase = "fusion_launches" if name in FUSION_SOURCES else "launches"
-        kernels.append({**row, "launches": ctx[phase][name]})
     print(ctx["smi"], flush=True)
     emit({"total_s": time.perf_counter() - t0})
-    emit({"kernels": kernels})
+    emit({"kernels": list(ctx["rows"].values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

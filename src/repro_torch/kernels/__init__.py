@@ -12,10 +12,18 @@
     (``csrc/gemm.cu``), replacing ``repro/kernels/gemm.py``;
   * ``pool.maxpool2d``, ``pool.adaptive_avg_pool2d``,
     ``pool.adaptive_avg_pool3d`` (``csrc/pool.cu``), replacing
-    ``repro/kernels/pool.py``.
+    ``repro/kernels/pool.py``;
+  * ``silu.silu_lut``, ``silu.silu_exact`` (``csrc/silu.cu``), replacing
+    ``repro/kernels/silu.py``;
+  * ``flash_attention.flash_attention`` (and ``flash_attention_causal_gqa``,
+    which launches the same kernel and counts on it)
+    (``csrc/flash_attention.cu``), replacing
+    ``repro/kernels/flash_attention.py``;
+  * ``slstm.slstm_fused`` (``csrc/slstm.cu``, one cooperative launch),
+    replacing ``repro/kernels/slstm.py``.
 
-``ref`` holds the plain PyTorch versions of the per-op functions, in the JAX
-package's layouts.
+``ref`` holds the plain PyTorch versions of the per-op and LM-side
+functions, in the JAX package's layouts.
 
 Dispatch is by device, with no switch: a wrapper given CUDA tensors
 launches its kernel (built from ``csrc/`` with nvcc at first use, see
@@ -29,11 +37,14 @@ from typing import Dict
 
 
 def _wrappers():
-    from repro_torch.kernels import conv, gemm, pool
+    from repro_torch.kernels import conv, gemm, pool, silu
     from repro_torch.kernels.cg_fused import solve_b_fused
     from repro_torch.kernels.cronet_pipeline import cronet_fused
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.slstm import slstm_fused
     fns = [cronet_fused, solve_b_fused, conv.conv2d, conv.conv3d, gemm.gemm,
-           pool.maxpool2d, pool.adaptive_avg_pool2d, pool.adaptive_avg_pool3d]
+           pool.maxpool2d, pool.adaptive_avg_pool2d, pool.adaptive_avg_pool3d,
+           silu.silu_lut, silu.silu_exact, flash_attention, slstm_fused]
     return {fn.__name__: fn for fn in fns}
 
 

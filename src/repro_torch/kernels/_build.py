@@ -33,6 +33,9 @@ SOURCES: Dict[str, list] = {
     "conv": [],
     "gemm": [],
     "pool": [],
+    "silu": [],
+    "flash_attention": [],
+    "slstm": [],
 }
 
 _lock = threading.Lock()

@@ -9,15 +9,22 @@ inside the fixture, never at import). On a machine with one:
 Kernels build from src/repro_torch/csrc with nvcc at first use.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the SiLU edge cases, the bf16 flash test)
+from repro_torch import layer_breakdown
 from repro_torch.common import init_params
 from repro_torch.configs.cronet import get_cronet_config
 from repro_torch.core import cronet, fusion
 from repro_torch.fea import fea2d, hybrid
-from repro_torch.kernels import cg_fused, conv, cronet_pipeline, gemm, pool
+from repro_torch.kernels import (cg_fused, conv, cronet_pipeline, gemm, pool,
+                                 ref, silu, slstm)
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.serve.topo_service import TopoServingEngine
 from repro_torch.serve.types import TopoRequest
 
@@ -200,3 +207,139 @@ def test_fusion_path_on_the_card(dev, path):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     moved = {fn.__name__ for fn, n in counts.items() if fn.launches > n}
     assert moved == ({"cronet_fused"} if path[1] else {"conv3d", "gemm"})
+
+
+@pytest.mark.parametrize("name", ["silu_lut", "silu_exact"])
+@pytest.mark.parametrize("n", [6000, 768000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_silu_kernels_match_plain(dev, name, n, dtype):
+    """Within 1e-6 of the plain version (the same fp32 arithmetic; the
+    table built the same way on the same device); one launch counted."""
+    kern = getattr(silu, name)
+    plain = getattr(silu, f"{name}_plain")
+    x = chip_smoke.silu_inputs(n, torch.Generator().manual_seed(n))
+    x = x.to(dev).to(dtype).reshape(60, -1)
+    before = kern.launches
+    out = kern(x)
+    assert kern.launches == before + 1
+    ref_ = plain(x)
+    assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref_.float(), rtol=0, atol=1e-6)
+
+
+FLASH_CASES = {   # (B, Sq, Sk, Hq, Hkv, D, dtype, input scale)
+    "sweep_256": (2, 256, 256, 4, 4, 32, torch.float32, 0.5),
+    "sweep_512_gqa": (2, 512, 512, 8, 2, 16, torch.float32, 0.5),
+    "sweep_256x512": (2, 256, 512, 2, 2, 64, torch.float32, 0.5),
+    "bf16_256": (1, 256, 256, 2, 2, 32, torch.bfloat16, 0.5),
+    "ragged_200": (1, 200, 200, 4, 2, 64, torch.float32, 0.5),
+    "qwen_S4096_bf16": (1, 4096, 4096, 40, 8, 128, torch.bfloat16, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_matches_plain(dev, case):
+    """Non-causal (flash_attention) and causal (flash_attention_causal_gqa)
+    against models.layers.attention: atol 2e-5 fp32; 3e-2 bf16 and, element
+    by element, 2e-3 + 1e-2 |ref| (chip_smoke.flash_excess); one launch per
+    call."""
+    b, sq, sk, hq, hkv, d, dt, scale = FLASH_CASES[case]
+    gen = torch.Generator().manual_seed(sq + hq)
+    q, k, v = ((torch.randn(shape, generator=gen) * scale).to(dt).to(dev)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    # JAX's default blocks where 128 does not divide the sequence
+    blocks = dict(block_q=128, block_k=128) if sq % 128 == sk % 128 == 0 \
+        else {}
+    calls = [(lambda: flash.flash_attention(q, k, v, causal=False, **blocks),
+              False)]
+    if sq == sk:
+        calls.append((lambda: flash.flash_attention_causal_gqa(
+            q, k, v, **blocks), True))
+    for call, causal in calls:
+        before = flash.flash_attention.launches
+        out = call()
+        assert flash.flash_attention.launches == before + 1
+        want = ref.attention(q, k, v, causal=causal)
+        assert out.dtype == dt and out.shape == want.shape
+        torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                                   atol=tol)
+        if dt == torch.bfloat16:
+            assert chip_smoke.flash_excess(out, want) <= 1.0
+
+
+@pytest.mark.parametrize("shape,tiling", [
+    ((2, 64, 2, 8), (16, 2)), ((2, 64, 2, 8), (64, 1)),
+    ((3, 50, 2, 12), (25, 3)), ((2, 40, 3, 6), (20, 2)),
+    ((16, 32, 2, 64), (32, 8)), ((8, 256, 4, 512), (256, 8))],
+    ids=["small_tb16_bt2", "small_tb64_bt1", "odd", "scalar_slices",
+         "two_batch_chunks", "xlstm_widths_S256"])
+def test_slstm_fused_matches_plain(dev, shape, tiling):
+    """The cooperative kernel against ref.slstm_sequential within 1e-4
+    (R scaled by 1/sqrt(dh) at xlstm-1.3b's widths; tests/test_torch_slstm.py
+    says why); one launch."""
+    b, s, nh, dh = shape
+    gen = torch.Generator().manual_seed(b * s)
+    wx = torch.randn((b, s, 4 * nh * dh), generator=gen).to(dev)
+    r = (torch.randn((nh, dh, 4 * dh), generator=gen)
+         * (0.3 if dh < 64 else dh ** -0.5)).to(dev)
+    before = slstm.slstm_fused.launches
+    out = slstm.slstm_fused(wx, r, time_block=tiling[0], batch_tile=tiling[1])
+    assert slstm.slstm_fused.launches == before + 1
+    torch.testing.assert_close(out, ref.slstm_sequential(wx, r), rtol=0,
+                               atol=1e-4)
+
+
+def test_slstm_fused_at_jax_init_scale(dev):
+    """xlstm-1.3b's widths with R ~ N(0, 1/6), the JAX package's init, where
+    fp32 is chaotic: within 1e-4 of the plain version over the first 4
+    steps, and over 64 steps never more than 4x the fp32 plain version's
+    own error against float64 until that reaches 0.1 (chip_smoke.py holds
+    B 8 to the same)."""
+    gen = torch.Generator().manual_seed(11)
+    wx = torch.randn((2, 64, 4 * 2048), generator=gen).to(dev)
+    r = (torch.randn((4, 512, 2048), generator=gen) * 6 ** -0.5).to(dev)
+    out = slstm.slstm_fused(wx, r)
+    p32 = ref.slstm_sequential(wx, r)
+    p64 = ref.slstm_sequential(wx.double(), r.double())
+    assert float((out - p32)[:, :4].abs().max()) <= 1e-4
+    e_k = (out.double() - p64).abs().amax(dim=(0, 2))
+    e_p = (p32.double() - p64).abs().amax(dim=(0, 2))
+    live = e_p < 0.1
+    assert int(live.sum()) >= 8
+    assert bool((e_k[live] <= 4 * e_p[live] + 1e-6).all())
+
+
+def test_slstm_fused_bf16_matches_plain(dev):
+    """bf16 wx: fp32 state, only h rounded to bf16 on output, as the plain
+    version does; within one bf16 ulp of |h| <= 1."""
+    gen = torch.Generator().manual_seed(7)
+    wx = torch.randn((2, 64, 4 * 2 * 8), generator=gen).bfloat16().to(dev)
+    r = (torch.randn((2, 8, 32), generator=gen) * 0.3).to(dev)
+    out = slstm.slstm_fused(wx, r)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(),
+                               ref.slstm_sequential(wx, r).float(), rtol=0,
+                               atol=2 ** -8)
+
+
+def test_slstm_fused_raises_when_not_coresident(dev):
+    """8192 heads of 16 units need 8192 resident blocks: the cooperative
+    launch is refused and the wrapper raises instead of degrading."""
+    wx = torch.zeros((1, 2, 4 * 8192 * 16), device=dev)
+    r = torch.zeros((8192, 16, 64), device=dev)
+    assert slstm.launch_plan(1, 8192, 16)["blocks"] == 8192
+    before = slstm.slstm_fused.launches
+    with pytest.raises(RuntimeError, match="resident"):
+        slstm.slstm_fused(wx, r)
+    assert slstm.slstm_fused.launches == before
+
+
+def test_layer_breakdown_on_the_card(dev):
+    """Fig 7 at small on the card: the JAX rows, both SiLU kernels
+    launched."""
+    before = (silu.silu_lut.launches, silu.silu_exact.launches)
+    rows = layer_breakdown.run("small", device=dev)
+    assert [r[0] for r in rows][-1] == "fig7/silu_lut" and len(rows) == 9
+    assert silu.silu_lut.launches > before[0]
+    assert silu.silu_exact.launches > before[1]
