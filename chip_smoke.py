@@ -13,8 +13,9 @@ Phases, one JSON line each on stdout:
      a warm start and a shape-padded (elem_mask) batch; times of both.
   3. fusion — (a) each per-op kernel (conv2d, conv3d, gemm, maxpool2d,
      adaptive_avg_pool2d/3d) against its plain version at CRONet medium's
-     layer shapes and at odd shapes, fp32 and bf16, timed beside its plain
-     version and the one PyTorch call for the same function; (b)
+     layer shapes and at odd shapes, fp32 and bf16 (the adaptive pools also
+     bitwise equal over two calls), timed beside its plain version and the
+     one PyTorch call for the same function; (b)
      core.fusion.infer on the none / l1 / l2l3 paths at small, medium and
      large (fp32) against core.cronet.forward at 1e-4, with the median
      latency of 30 synchronised calls and the launches per call; every
@@ -27,11 +28,13 @@ Phases, one JSON line each on stdout:
      medium (paper Fig 7), which must launch both SiLU kernels.
   5. lm_kernels — (a) flash_attention (non-causal, the GQA fold) and
      flash_attention_causal_gqa at qwen2.5-32b's attention widths (B 1,
-     S 4096, 40 q heads on 8 kv heads, D 128, bf16) against the port's
-     models.layers.attention (bf16 also element by element, a test that a
-     dropped key tile and a wrong kv head are shown to fail), again at fp32
-     with S 1024 and at the CPU tests' shapes, timed beside
-     F.scaled_dot_product_attention; (b) slstm_fused at xlstm-1.3b's widths
+     S 4096, 40 q heads on 8 kv heads, D 128, bf16: each call must launch
+     the tensor-core kernel) against the port's models.layers.attention
+     (bf16 also element by element, a test that a dropped key tile and a
+     wrong kv head are shown to fail), again at fp32 with S 1024 (the SIMT
+     kernel), at the CPU tests' shapes and at a ragged bf16 S 200, timed
+     beside F.scaled_dot_product_attention; flash's build seconds and ptxas
+     report; (b) slstm_fused at xlstm-1.3b's widths
      (B 8, S 4096, 4 heads of 512, fp32 wx) against ref.slstm_sequential,
      the error over the first and the last 64 steps; at the JAX package's
      init scale over 64 steps against the plain version in fp32 and
@@ -42,11 +45,12 @@ Phases, one JSON line each on stdout:
      and solve_b_fused must be launched by that phase.
   7. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
-Then the card's nvidia-smi line, one `kernels` JSON line (all twelve
-wrappers; each kernel's launches from the phase that drives its path:
-serving for cronet_fused and solve_b_fused, fusion (b) for the per-op
-kernels, breakdown's layer_breakdown.run for the SiLU kernels, lm_kernels'
-full-width calls for flash_attention and slstm_fused), and last
+Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
+kernels of the twelve wrappers; each kernel's launches from the phase that
+drives its path: serving for cronet_fused and solve_b_fused, fusion (b)
+for the per-op kernels, breakdown's layer_breakdown.run for the SiLU
+kernels, lm_kernels' counted calls for the two flash kernels and
+slstm_fused), and last
 {"ok": true, "device": {...}}. Exits nonzero, without the ok line, when
 there is no CUDA GPU, when the port is not beside this script, or when
 any phase fails. Imports nothing of JAX or of the JAX package.
@@ -108,17 +112,23 @@ def problems(fea2d, cfg, n, seed=0):
 # ------------------------------------------------------------------ phases
 
 
+def ptxas_report(log: str) -> list:
+    """ptxas's register, shared memory and spill lines from an nvcc log."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
 def phase_build(ctx):
     import torch
     from repro_torch.kernels import _build, build_all
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     build_s = build_all()
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_report(log)
              for name, log in _build.build_logs.items()}
     ctx["smi"] = nvidia_smi()
-    emit({"phase": "build", "build_s": build_s, "nvidia_smi": ctx["smi"],
+    emit({"phase": "build", "build_s": build_s,
+          "build_s_per_source": _build.build_seconds, "nvidia_smi": ctx["smi"],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                          "matmul": torch.backends.cuda.matmul.allow_tf32},
@@ -423,6 +433,8 @@ def phase_fusion(ctx):
                     sync()
                     ok = ok and out.dtype == dt and bool(torch.allclose(
                         out.float(), ref.float(), rtol=rtol, atol=atol))
+                    if name.startswith("adaptive"):   # fixed-order sums
+                        ok = ok and bool(torch.equal(out, kern(fs)))
                     errs.append(float((out.float() - ref.float())
                                       .abs().max()))
                 ok_all = ok_all and ok
@@ -642,7 +654,7 @@ def phase_lm_kernels(ctx):
     import torch
     from repro_torch import kernels
     from repro_torch.configs.lm import get_lm_config
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_causal_gqa)
     from repro_torch.kernels.slstm import launch_plan, slstm_fused
@@ -668,6 +680,8 @@ def phase_lm_kernels(ctx):
         return flash_attention(q, k, v, causal=False, **blocks)
 
     q, k, v = qkv(1, S, S, qc.num_heads, qc.num_kv_heads, qc.head_dim, bf16)
+    q32, k32, v32 = qkv(1, 1024, 1024, qc.num_heads, qc.num_kv_heads,
+                        qc.head_dim, f32)
     B, nh = 8, xc.num_heads
     dh = xc.d_model // nh
     # fp32 wx as apply_slstm_block feeds it; R scaled by 1/sqrt(dh), the
@@ -675,20 +689,32 @@ def phase_lm_kernels(ctx):
     wx = randn((B, S, 4 * xc.d_model), f32)
     r = randn((nh, dh, 4 * dh), f32, dh ** -0.5)
 
-    # the path: both flash entry points and the sLSTM at full width
+    # the path: both flash entry points at full width in bf16 (each must go
+    # through the tensor-core kernel) and in fp32 at S 1024 (the SIMT
+    # kernel), and the sLSTM at full width
     kernels.reset_launch_counts()
-    outs = {False: flash(q, k, v, False), True: flash(q, k, v, True)}
+    outs, tc_calls = {}, []
+    for c in (False, True):
+        before = flash_attention.tc_launches
+        outs[c] = flash(q, k, v, c)
+        tc_calls.append(flash_attention.tc_launches - before)
+    outs32 = {c: flash(q32, k32, v32, c) for c in (False, True)}
     h = slstm_fused(wx, r)
     sync()
     counts = kernels.launch_counts()
+    tc_launches = flash_attention.tc_launches
+    simt_launches = flash_attention.simt_launches
+    if tc_calls != [1, 1]:
+        raise AssertionError(f"the qwen S 4096 bf16 calls did not each "
+                             f"launch the tensor-core kernel: {tc_calls}")
 
     ok_all, fl = True, {}
 
-    def check(label, q, k, v, causal, out=None, **blocks):
+    def check(label, q, k, v, causal, out=None, chunk=1024, **blocks):
         nonlocal ok_all
         dname = str(q.dtype).split(".")[-1]
         o = flash(q, k, v, causal, **blocks) if out is None else out
-        rf = ref.attention(q, k, v, causal=causal)
+        rf = ref.attention(q, k, v, causal=causal, chunk=chunk)
         sync()
         err = float((o.float() - rf.float()).abs().max())
         ok = (o.shape == rf.shape and o.dtype == q.dtype
@@ -726,23 +752,26 @@ def phase_lm_kernels(ctx):
     if min(sensitivity.values()) <= 1.0:
         raise AssertionError(f"the bf16 flash test passes a wrong "
                              f"attention: {sensitivity}")
-    times = {}
+    times, times32 = {}, {}
     for c in (False, True):
         times[c] = dict(
-            ms=cuda_ms(lambda: flash(q, k, v, c), reps=3),
+            ms=cuda_ms(lambda: flash(q, k, v, c), reps=10),
             plain_ms=cuda_ms(lambda: ref.attention(q, k, v, causal=c),
                              reps=2),
             library_ms=cuda_ms(lambda: sdpa(q, k, v, c), reps=10))
         fl[f"qwen_S4096/{'causal' if c else 'noncausal'}/bfloat16"].update(
             times[c])
-    q32, k32, v32 = qkv(1, 1024, 1024, qc.num_heads, qc.num_kv_heads,
-                        qc.head_dim, f32)
+    full_err32 = [check("qwen_S1024", q32, k32, v32, c, out=outs32[c])
+                  for c in (False, True)]
     for c in (False, True):
-        check("qwen_S1024", q32, k32, v32, c)
-        fl[f"qwen_S1024/{'causal' if c else 'noncausal'}/float32"].update(
+        times32[c] = dict(
             ms=cuda_ms(lambda: flash(q32, k32, v32, c), reps=3),
+            plain_ms=cuda_ms(lambda: ref.attention(q32, k32, v32, causal=c),
+                             reps=2),
             library_ms=cuda_ms(lambda: sdpa(q32, k32, v32, c), reps=10))
-    del q32, k32, v32
+        fl[f"qwen_S1024/{'causal' if c else 'noncausal'}/float32"].update(
+            times32[c])
+    del q32, k32, v32, outs32
     for sq, sk, hq, hkv, d in ((256, 256, 4, 4, 32), (512, 512, 8, 2, 16),
                                (256, 512, 2, 2, 64)):
         small = qkv(2, sq, sk, hq, hkv, d, f32, 0.5)
@@ -751,19 +780,31 @@ def phase_lm_kernels(ctx):
                   block_q=128, block_k=128)
     check("cpu_tests_bf16", *qkv(1, 256, 256, 2, 2, 32, bf16, 0.5), True,
           block_q=128, block_k=128)
+    # tensor cores, ragged tiles, against the reference's online-softmax
+    # path (its direct path rounds the normalised p; see
+    # tests/test_torch_flash_tc.py)
+    ragged = qkv(1, 200, 200, 10, 2, 128, bf16)
+    for c in (False, True):
+        check("tc_ragged_200", *ragged, c, chunk=40)
 
+    # tensor-core kernel at bf16 S 4096, SIMT kernel at fp32 S 1024, each
+    # summed over its non-causal and causal call
     hq, hkv, d = qc.num_heads, qc.num_kv_heads, qc.head_dim
-    pairs = S * S + S * (S + 1) // 2           # non-causal + causal
-    flops = 4.0 * hq * d * pairs
-    nbytes = 2.0 * 2 * (2 * S * hq * d + 2 * S * hkv * d)
-    ctx["rows"]["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:72",
-        launches=counts["flash_attention"], max_abs_err=max(full_err),
-        **{key: sum(t[key] for t in times.values())
-           for key in ("ms", "plain_ms", "library_ms")},
-        **bound(nbytes, flops, H100_BF16_FLOPS))
+    for name, t, s_, es, peak, n, err in (
+            ("flash_attention_tc", times, S, 2, H100_BF16_FLOPS, tc_launches,
+             max(full_err)),
+            ("flash_attention_simt", times32, 1024, 4, H100_FP32_FLOPS,
+             simt_launches, max(full_err32))):
+        pairs = s_ * s_ + s_ * (s_ + 1) // 2   # non-causal + causal
+        ctx["rows"][name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:72",
+            launches=n, max_abs_err=err,
+            **{key: sum(x[key] for x in t.values())
+               for key in ("ms", "plain_ms", "library_ms")},
+            **bound(2.0 * es * (2 * s_ * hq * d + 2 * s_ * hkv * d),
+                    4.0 * hq * d * pairs, peak))
 
     # (b) the sLSTM: the full-width run above against the plain loop
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -824,10 +865,18 @@ def phase_lm_kernels(ctx):
         **bound(4.0 * (wx.numel() + B * S * nh * dh + r.numel()),
                 2.0 * B * S * nh * dh * 4 * dh, H100_FP32_FLOPS))
     emit({"phase": "lm_kernels", "flash_attention": fl, "slstm": sl,
-          "launches": counts})
+          "launches": counts, "flash_launches": {"tc": tc_launches,
+                                                 "simt": simt_launches},
+          "flash_build": {
+              "build_s": _build.build_seconds.get("flash_attention"),
+              "ptxas": ptxas_report(_build.build_logs.get(
+                  "flash_attention", ""))}})
     if not (ok_all and ok_sl):
         raise AssertionError("an LM kernel disagrees with its plain version")
-    missing = [n for n in ("flash_attention", "slstm_fused") if counts[n] == 0]
+    missing = [n for n, c in (("flash_attention_tc", tc_launches),
+                              ("flash_attention_simt", simt_launches),
+                              ("slstm_fused", counts["slstm_fused"]))
+               if c == 0]
     if missing:
         raise AssertionError(f"the LM kernel path never launched {missing}")
 

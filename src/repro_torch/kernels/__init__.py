@@ -16,7 +16,8 @@
   * ``silu.silu_lut``, ``silu.silu_exact`` (``csrc/silu.cu``), replacing
     ``repro/kernels/silu.py``;
   * ``flash_attention.flash_attention`` (and ``flash_attention_causal_gqa``,
-    which launches the same kernel and counts on it)
+    which launches the same kernels and counts on it): a tensor-core kernel
+    for bf16 at head widths 64 and 128, a SIMT kernel otherwise
     (``csrc/flash_attention.cu``), replacing
     ``repro/kernels/flash_attention.py``;
   * ``slstm.slstm_fused`` (``csrc/slstm.cu``, one cooperative launch),
@@ -29,7 +30,9 @@ Dispatch is by device, with no switch: a wrapper given CUDA tensors
 launches its kernel (built from ``csrc/`` with nvcc at first use, see
 ``_build``) or raises; given CPU tensors it runs its plain PyTorch version.
 Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``, bumped only where the kernel is launched.
+``<wrapper>.launches``, bumped only where the kernel is launched; a wrapper
+with two kernels also counts each one's (``flash_attention.tc_launches``,
+``.simt_launches``).
 """
 from __future__ import annotations
 
@@ -55,7 +58,9 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts():
     for fn in _wrappers().values():
-        fn.launches = 0
+        for attr in list(vars(fn)):
+            if attr.endswith("launches"):
+                setattr(fn, attr, 0)
 
 
 def build_all() -> float:

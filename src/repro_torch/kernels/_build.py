@@ -40,8 +40,10 @@ SOURCES: Dict[str, list] = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# nvcc's report (ptxas registers / shared memory / spills) per source
+# nvcc's report (ptxas registers / shared memory / spills) and wall seconds
+# per source built in this process
 build_logs: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -73,19 +75,26 @@ def build_all(names: Optional[Iterable[str]] = None) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = out.with_suffix(f".{os.getpid()}.log")
         cmd = [nvcc(), *ARCH, *COMMON_FLAGS, *SOURCES[name], "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        procs[name] = (proc, tmp, out, log)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    while procs:        # poll, so that each source's seconds are its own
+        for name in [n for n, p in procs.items() if p[0].poll() is not None]:
+            proc, tmp, out, log = procs.pop(name)
+            build_seconds[name] = time.perf_counter() - t0
+            build_logs[name] = log.read_text()
+            log.unlink()
+            if proc.returncode != 0:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n"
+                              f"{build_logs[name]}")
+                continue
+            os.replace(tmp, out)
+        if procs:
+            time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return time.perf_counter() - t0

@@ -1,15 +1,22 @@
-"""``flash_attention`` and ``flash_attention_causal_gqa``: one CUDA kernel.
+"""``flash_attention`` and ``flash_attention_causal_gqa``: two CUDA kernels.
 
 Replace the Pallas kernels ``repro/kernels/flash_attention.py::
 flash_attention`` and ``::flash_attention_causal_gqa``, with their
 signatures and their checks: a call the JAX functions reject (a block size
 that does not divide the sequence, causal attention with grouped q heads
 through ``flash_attention``) raises here too. ``csrc/flash_attention.cu``
-runs one thread block per (batch, q head, 64-row q tile) with q head h
-reading kv head h // g, so the grouped causal call is one launch over all q
-heads instead of JAX's loop over the group; see that file for the design.
-The block sizes are checked but do not tile the kernel. Both wrappers count
-their launches on ``flash_attention.launches`` (one kernel).
+runs one thread block per (batch, q head, q tile) with q head h reading kv
+head h // g, so the grouped causal call is one launch over all q heads
+instead of JAX's loop over the group; see that file for the design. The
+block sizes are checked but do not tile the kernels.
+
+Which kernel a CUDA call launches is a fixed rule on dtype and head width
+(``kernel_for``): bfloat16 q, k, v with D == Dv in (64, 128) go to the
+tensor-core kernel (wgmma fed by TMA, ``"tc"``); float32, and bfloat16 at
+any other width, go to the SIMT kernel (``"simt"``). A kernel that fails to
+build or launch raises; there is no second try on the other one. Both
+wrappers count every launch on ``flash_attention.launches`` and each
+kernel's on ``flash_attention.tc_launches`` or ``.simt_launches``.
 
 Plain version: ``ref.attention`` (``models.layers.attention``). It runs
 only for CPU tensors.
@@ -49,9 +56,25 @@ def _check(name, q, k, v, block_q, block_k, fold: bool):
                          f"Sq * g = {sq * g} and Sk = {sk}")
 
 
+TC_WIDTHS = (64, 128)
+
+
+def kernel_for(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The kernel a CUDA call with q, k, v of ``dtype`` and head widths D,
+    Dv launches: ``"tc"`` (tensor cores) or ``"simt"``."""
+    if dtype == torch.bfloat16 and d == dv and d in TC_WIDTHS:
+        return "tc"
+    return "simt"
+
+
+def _aligned(t):
+    """t, or a copy of it whose data is 16-byte aligned (TMA's rule)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(q, k, v, causal: bool):
-    """One launch of the kernel over all q heads; counts it on
-    ``flash_attention``."""
+    """One launch of the kernel ``kernel_for`` picks, over all q heads;
+    counts it on ``flash_attention``."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}")
@@ -68,16 +91,29 @@ def _launch(q, k, v, causal: bool):
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib, fn = _build.function(
-        "flash_attention", "flash_attention_forward", ctypes.c_int,
-        [ctypes.c_int] + [ctypes.c_void_p] * 5
-        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     dims = (ctypes.c_int * 7)(b, sq, sk, hq, hkv, d, dv)
-    err = fn(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), dims, int(causal), 1.0 / math.sqrt(d),
-             *_build.device_stream(q.device))
+    tail = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    args = (out.data_ptr(), dims, int(causal), 1.0 / math.sqrt(d),
+            *_build.device_stream(q.device))
+    kernel = kernel_for(q.dtype, d, dv)
+    if kernel == "tc":
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        lib, fn = _build.function(
+            "flash_attention", "flash_attention_tc_forward", ctypes.c_int,
+            [ctypes.c_void_p] * 5 + tail)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *args)
+    else:
+        lib, fn = _build.function(
+            "flash_attention", "flash_attention_forward", ctypes.c_int,
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + tail)
+        err = fn(_build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), *args)
     _build.check(lib, "flash_attention", err)
     flash_attention.launches += 1
+    if kernel == "tc":
+        flash_attention.tc_launches += 1
+    else:
+        flash_attention.simt_launches += 1
     return out
 
 
@@ -112,3 +148,5 @@ def flash_attention_causal_gqa(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
+flash_attention.simt_launches = 0

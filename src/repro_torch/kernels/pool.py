@@ -1,11 +1,12 @@
 """``maxpool2d``, ``adaptive_avg_pool2d``, ``adaptive_avg_pool3d``: two CUDA
-kernels, one thread per output.
+kernels.
 
 Replace the Pallas kernels ``repro/kernels/pool.py::maxpool2d``,
 ``::adaptive_avg_pool2d`` and ``::adaptive_avg_pool3d``. ``csrc/pool.cu``
-holds a floor-window max pool and a 3D adaptive average pool, which the 2D
-pool calls with D = od = 1; see that file for the design. Each wrapper
-counts its own launches.
+holds a floor-window max pool (one thread per output) and a 3D adaptive
+average pool (one block per output cell and 32 channels, its warps
+splitting the window), which the 2D pool calls with D = od = 1; see that
+file for the design. Each wrapper counts its own launches.
 
 Plain versions: ``ref.maxpool2d`` (exact in any dtype) and the adaptive
 pools of ``ref`` in fp32, rounded once to x's dtype, as the Pallas kernels

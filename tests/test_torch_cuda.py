@@ -174,6 +174,32 @@ def test_per_op_kernel_matches_plain(dev, op, dtype):
                                atol=tol * 10)
 
 
+@pytest.mark.parametrize("shape,out_hw", [
+    ((10, 10, 15, 40), (1, 1)), ((3, 6, 5, 40), (6, 5)),
+    ((10, 10, 15, 32), (1, 1))],
+    ids=["ragged_c40", "window_of_1", "branch"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aap2d_block_reduction(dev, shape, out_hw, dtype):
+    """The window reduction at 40 channels (a ragged 32-channel tile), at
+    windows of one pixel (each output is its input, exactly) and at the
+    branch shape: within the fusion tolerances of the plain version, and
+    two calls bitwise equal."""
+    gen = torch.Generator().manual_seed(shape[-1])
+    x = torch.randn(shape, generator=gen).to(dtype).to(dev)
+    before = pool.adaptive_avg_pool2d.launches
+    out = pool.adaptive_avg_pool2d(x, out_hw)
+    again = pool.adaptive_avg_pool2d(x, out_hw)
+    assert pool.adaptive_avg_pool2d.launches == before + 2
+    assert torch.equal(out, again)
+    want = pool.adaptive_avg_pool2d_plain(x, out_hw)
+    assert out.dtype == dtype and out.shape == want.shape
+    rtol, atol = chip_smoke.FUSION_TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    if out_hw == tuple(shape[1:3]):
+        assert torch.equal(out, x)
+
+
 @pytest.mark.parametrize("op", ["conv2d_odd", "gemm_odd"])
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
@@ -234,7 +260,22 @@ FLASH_CASES = {   # (B, Sq, Sk, Hq, Hkv, D, dtype, input scale)
     "bf16_256": (1, 256, 256, 2, 2, 32, torch.bfloat16, 0.5),
     "ragged_200": (1, 200, 200, 4, 2, 64, torch.float32, 0.5),
     "qwen_S4096_bf16": (1, 4096, 4096, 40, 8, 128, torch.bfloat16, 1.0),
+    # the tensor-core kernel: both widths, qwen's group of 5, ragged tiles,
+    # Sq < Sk (non-causal only), and two batches
+    "tc_bf16_d64": (2, 256, 256, 4, 4, 64, torch.bfloat16, 1.0),
+    "tc_bf16_d128": (2, 256, 256, 4, 4, 128, torch.bfloat16, 1.0),
+    "tc_bf16_gqa5": (1, 512, 512, 10, 2, 128, torch.bfloat16, 1.0),
+    "tc_bf16_ragged_200": (1, 200, 200, 10, 2, 128, torch.bfloat16, 1.0),
+    "tc_bf16_256x512": (1, 256, 512, 4, 2, 128, torch.bfloat16, 1.0),
 }
+# The tensor-core cases hold the kernel to the reference's online-softmax
+# path in these chunks (p rounded to bf16 before it is normalised, as in
+# the kernel): the direct path rounds the normalised p, which parts from
+# the kernel by more than the bf16 test allows in causal rows with few keys
+# (tests/test_torch_flash_tc.py).
+FLASH_REF_CHUNK = {"tc_bf16_d64": 64, "tc_bf16_d128": 64,
+                   "tc_bf16_gqa5": 128, "tc_bf16_ragged_200": 40,
+                   "tc_bf16_256x512": 128}
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
@@ -242,7 +283,7 @@ def test_flash_attention_matches_plain(dev, case):
     """Non-causal (flash_attention) and causal (flash_attention_causal_gqa)
     against models.layers.attention: atol 2e-5 fp32; 3e-2 bf16 and, element
     by element, 2e-3 + 1e-2 |ref| (chip_smoke.flash_excess); one launch per
-    call."""
+    call, on the kernel that flash.kernel_for names."""
     b, sq, sk, hq, hkv, d, dt, scale = FLASH_CASES[case]
     gen = torch.Generator().manual_seed(sq + hq)
     q, k, v = ((torch.randn(shape, generator=gen) * scale).to(dt).to(dev)
@@ -256,16 +297,39 @@ def test_flash_attention_matches_plain(dev, case):
     if sq == sk:
         calls.append((lambda: flash.flash_attention_causal_gqa(
             q, k, v, **blocks), True))
+    kernel = flash.kernel_for(dt, d, d)
+    assert kernel == ("tc" if case.startswith("tc_") or case.startswith(
+        "qwen") else "simt")
     for call, causal in calls:
         before = flash.flash_attention.launches
+        before_k = getattr(flash.flash_attention, f"{kernel}_launches")
         out = call()
         assert flash.flash_attention.launches == before + 1
-        want = ref.attention(q, k, v, causal=causal)
+        assert getattr(flash.flash_attention,
+                       f"{kernel}_launches") == before_k + 1
+        want = ref.attention(q, k, v, causal=causal,
+                             chunk=FLASH_REF_CHUNK.get(case, 1024))
         assert out.dtype == dt and out.shape == want.shape
         torch.testing.assert_close(out.float(), want.float(), rtol=0,
                                    atol=tol)
         if dt == torch.bfloat16:
             assert chip_smoke.flash_excess(out, want) <= 1.0
+
+
+def test_flash_attention_tc_takes_unaligned_views(dev):
+    """A q that starts 2 bytes into its storage (TMA needs 16) still goes
+    through the tensor-core kernel and matches the plain version."""
+    gen = torch.Generator().manual_seed(9)
+    base = torch.randn((1 + 1 * 128 * 4 * 64,), generator=gen)
+    q = base.bfloat16().to(dev)[1:].view(1, 128, 4, 64)
+    k, v = (torch.randn((1, 128, 2, 64), generator=gen).bfloat16().to(dev)
+            for _ in range(2))
+    assert q.data_ptr() % 16 != 0
+    before = flash.flash_attention.tc_launches
+    out = flash.flash_attention(q, k, v, causal=False)
+    assert flash.flash_attention.tc_launches == before + 1
+    assert chip_smoke.flash_excess(
+        out, ref.attention(q, k, v, causal=False, chunk=32)) <= 1.0
 
 
 @pytest.mark.parametrize("shape,tiling", [

@@ -170,6 +170,19 @@ def test_aap2d_matches_pallas(hw, out, dtype):
     _close(pool.adaptive_avg_pool2d(tx, out), ref, dtype)
 
 
+@pytest.mark.parametrize("c", [32, 40], ids=["branch", "ragged_c40"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_aap2d_branch_shape_matches_pallas(c, dtype):
+    """CRONet medium's branch pool, (10, 10, 15, 32) -> (1, 1), and the same
+    windows at 40 channels (the card's kernel reduces 32-channel tiles, the
+    second one ragged)."""
+    rng = np.random.default_rng(c)
+    jx, tx = _pair(rng.standard_normal((10, 10, 15, c)).astype(np.float32),
+                   dtype)
+    ref = jpool.adaptive_avg_pool2d(jx, (1, 1), interpret=True)
+    _close(pool.adaptive_avg_pool2d(tx, (1, 1)), ref, dtype)
+
+
 @pytest.mark.parametrize("dhw,out", [((4, 21, 31), (3, 5, 5)),
                                      ((5, 8, 9), (2, 3, 3))])
 @pytest.mark.parametrize("dtype", DTYPES)
