@@ -13,9 +13,12 @@ Phases, one JSON line each on stdout:
      a warm start and a shape-padded (elem_mask) batch; times of both.
   3. fusion — (a) each per-op kernel (conv2d, conv3d, gemm, maxpool2d,
      adaptive_avg_pool2d/3d) against its plain version at CRONet medium's
-     layer shapes and at odd shapes, fp32 and bf16 (the adaptive pools also
-     bitwise equal over two calls), timed beside its plain version and the
-     one PyTorch call for the same function; (b)
+     layer shapes and at odd shapes, fp32 and bf16 (the adaptive pools and
+     the convolutions also bitwise equal over two calls), timed beside its
+     plain version and the one PyTorch call for the same function (the
+     convolutions in bf16 too, beside F.conv2d/F.conv3d in bf16, each case
+     printed); every bf16 convolution call at Cin 16 must launch the
+     tensor-core kernel and every fp32 call the SIMT kernel (counted); (b)
      core.fusion.infer on the none / l1 / l2l3 paths at small, medium and
      large (fp32) against core.cronet.forward at 1e-4, with the median
      latency of 30 synchronised calls and the launches per call; every
@@ -25,7 +28,8 @@ Phases, one JSON line each on stdout:
      4 slots (768,000) and on 2^26 elements (a bandwidth reading), with the
      tails, every table point and every midpoint (and their neighbouring
      floats) among the inputs; then repro_torch.layer_breakdown.run at
-     medium (paper Fig 7), which must launch both SiLU kernels.
+     medium (paper Fig 7, bf16), which must launch both SiLU kernels and
+     each convolution wrapper's tensor-core kernel.
   5. lm_kernels — (a) flash_attention (non-causal, the GQA fold) and
      flash_attention_causal_gqa at qwen2.5-32b's attention widths (B 1,
      S 4096, 40 q heads on 8 kv heads, D 128, bf16: each call must launch
@@ -50,7 +54,9 @@ kernels of the twelve wrappers; each kernel's launches from the phase that
 drives its path: serving for cronet_fused and solve_b_fused, fusion (b)
 for the per-op kernels, breakdown's layer_breakdown.run for the SiLU
 kernels, lm_kernels' counted calls for the two flash kernels and
-slstm_fused), and last
+slstm_fused; the conv2d and conv3d rows also carry kernel_for's split:
+the SIMT kernel's launches on fusion (b), fp32, and the tensor-core
+kernel's on the breakdown, bf16), and last
 {"ok": true, "device": {...}}. Exits nonzero, without the ok line, when
 there is no CUDA GPU, when the port is not beside this script, or when
 any phase fails. Imports nothing of JAX or of the JAX package.
@@ -388,6 +394,37 @@ def fusion_call(name, args, dt, dev, gen):
 
 
 FUSION_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-1)}
+CONV_NAMES = ("conv2d", "conv3d")
+
+
+def _conv_counts(name):
+    """(tensor-core, SIMT) launches of a convolution wrapper so far."""
+    from repro_torch.kernels import conv
+    if name not in CONV_NAMES:
+        return None
+    fn = getattr(conv, name)
+    return fn.tc_launches, fn.simt_launches
+
+
+def _check_conv_kernel(name, args, dname, before, calls):
+    """The kernel the case's ``calls`` calls launched, by the counters:
+    every bf16 call at Cin 16 must have gone to the tensor cores, every
+    fp32 call to the SIMT kernel, any other to what kernel_for names."""
+    import torch
+    from repro_torch.kernels import conv
+    cin, cout = args["w"][-2:]
+    dt = getattr(torch, dname)
+    want = ("simt" if dname == "float32" else
+            "tc" if cin == 16 else conv.kernel_for(dt, cin, cout))
+    if conv.kernel_for(dt, cin, cout) != want:
+        raise AssertionError(f"{name}: kernel_for({dname}, {cin}, {cout}) "
+                             f"is not {want}")
+    tc, simt = _conv_counts(name)
+    moved = (tc - before[0], simt - before[1])
+    if moved != ((calls, 0) if want == "tc" else (0, calls)):
+        raise AssertionError(f"{name} {args} {dname}: {calls} calls moved "
+                             f"(tc, simt) by {moved}, want all on {want}")
+    return want
 FUSION_SOURCES = {
     "conv2d": ("conv.cu", "src/repro/kernels/conv.py:44"),
     "conv3d": ("conv.cu", "src/repro/kernels/conv.py:82"),
@@ -421,6 +458,9 @@ def phase_fusion(ctx):
         rep = {"cases": {}, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "call_ms": 0.0, "bytes": 0.0, "flops": 0.0,
                "max_abs_err": 0.0}
+        if name in CONV_NAMES:      # bf16 sums over the same calls
+            rep["bfloat16"] = {"ms": 0.0, "library_ms": 0.0,
+                               "bound_ms": 0.0}
         for label, per_fwd, args in cases:
             for dname, dt in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
@@ -428,18 +468,22 @@ def phase_fusion(ctx):
                     name, args, dt, dev, gen)
                 rtol, atol = FUSION_TOL[dname]
                 errs, ok = [], True
+                before = _conv_counts(name)
                 for fs in (False, True):     # convolutions: SiLU off / on
                     out, ref = kern(fs), plain(fs)
                     sync()
                     ok = ok and out.dtype == dt and bool(torch.allclose(
                         out.float(), ref.float(), rtol=rtol, atol=atol))
-                    if name.startswith("adaptive"):   # fixed-order sums
+                    if name.startswith(("adaptive", "conv")):  # fixed order
                         ok = ok and bool(torch.equal(out, kern(fs)))
                     errs.append(float((out.float() - ref.float())
                                       .abs().max()))
                 ok_all = ok_all and ok
                 case = {"max_abs_err": max(errs), "ok": ok,
                         "tol": f"rtol={rtol} atol={atol}"}
+                if name in CONV_NAMES:
+                    case["kernel"] = _check_conv_kernel(
+                        name, args, dname, before, calls=4)
                 if dname == "float32":      # timed as the l1 path calls it
                     case.update(
                         ms=graph_ms(lambda: kern(True)),
@@ -454,6 +498,16 @@ def phase_fusion(ctx):
                             rep[key] += per_fwd * case[key]
                         rep["bytes"] += per_fwd * nbytes
                         rep["flops"] += per_fwd * flops
+                elif name in CONV_NAMES:    # bf16, as Fig 7 calls it
+                    case.update(
+                        ms=graph_ms(lambda: kern(True)),
+                        library_ms=graph_ms(lib),
+                        **bound(nbytes, flops, H100_BF16_FLOPS
+                                if case["kernel"] == "tc"
+                                else H100_FP32_FLOPS))
+                    if per_fwd:
+                        for key in ("ms", "library_ms", "bound_ms"):
+                            rep["bfloat16"][key] += per_fwd * case[key]
                 rep["cases"][f"{label}/{dname}"] = case
         per_kernel[name] = rep
         emit({"phase": "fusion_kernel", "name": name, **rep})
@@ -498,6 +552,7 @@ def phase_fusion(ctx):
                 "launches_per_call": per_call, "max_abs_err": err,
                 "tol": "rtol=atol=1e-4", "ok": ok}
     counts = kernels.launch_counts()
+    conv_simt = {n: _conv_counts(n) for n in CONV_NAMES}
     # device time of a forward without the host: the path in a CUDA graph
     # (after the counts are read: capture is not a run of the path)
     for key, fn in graphed.items():
@@ -512,6 +567,18 @@ def phase_fusion(ctx):
             call_ms=rep["call_ms"], plain_ms=rep["plain_ms"],
             **bound(rep["bytes"], rep["flops"], H100_FP32_FLOPS),
             library_ms=rep["library_ms"], launches=counts[name])
+        if name in CONV_NAMES:
+            # kernel_for's split: the SIMT kernel's launches on the fusion
+            # paths (fp32); the tensor-core kernel's, Fig 7's (bf16), are
+            # filled in by the breakdown phase
+            tc, simt = conv_simt[name]
+            ctx["rows"][name]["split"] = {
+                "simt": {"launches": simt, "path": "fusion (b), fp32"},
+                "tc": {"launches": None, "path": "breakdown, Fig 7, bf16"},
+                "bf16_sums": rep["bfloat16"]}
+            if tc:
+                raise AssertionError(f"{name}: an fp32 fusion path launched "
+                                     "the tensor-core kernel")
     if not ok_all:
         raise AssertionError("a per-op kernel or a fusion path disagrees "
                              "with its plain version")
@@ -599,8 +666,15 @@ def phase_breakdown(ctx):
     kernels.reset_launch_counts()
     rows = layer_breakdown.run("medium", device=dev)
     counts = kernels.launch_counts()
+    conv_split = {n: dict(zip(("tc", "simt"), _conv_counts(n)))
+                  for n in CONV_NAMES}
     emit({"phase": "breakdown", "silu": report, "fig7_medium": rows,
-          "launches": counts})
+          "launches": counts, "conv_launches": conv_split})
+    for name in CONV_NAMES:     # Fig 7 runs the Cin-16 layers in bf16
+        ctx["rows"][name]["split"]["tc"]["launches"] = conv_split[name]["tc"]
+        if conv_split[name]["tc"] == 0:
+            raise AssertionError(f"the layer breakdown never launched "
+                                 f"{name}'s tensor-core kernel")
     for name, replaces in SILU_SOURCES.items():
         main = report[f"{name}/layer_breakdown/float32"]
         ctx["rows"][name] = dict(

@@ -79,12 +79,13 @@ def init_params(cfg: CRONetConfig, seed: int = 0, device="cuda",
     return out
 
 
-def params_from_jax(tree, device="cpu") -> Params:
+def params_from_jax(tree, device="cuda") -> Params:
     """The JAX parameter tree (nested dict of arrays in
     ``repro.core.cronet.param_specs`` layout, e.g. ``jax.device_get`` of
-    it) as the port's parameters. Layouts are shared, so this is a copy;
-    bfloat16 leaves stay bfloat16, everything else becomes float32."""
-    dev = torch.device(device)
+    it) as the port's parameters on ``device`` (the card unless the caller
+    asks for the CPU). Layouts are shared, so this is a copy; bfloat16
+    leaves stay bfloat16, everything else becomes float32."""
+    dev = resolve_device(device)
     out: Params = {}
     for part, leaves in tree.items():
         out[part] = {}

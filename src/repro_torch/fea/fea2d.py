@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import resolve_device
+
 
 def element_stiffness(nu: float = 0.3) -> np.ndarray:
     """Standard 8x8 bilinear quad KE (E=1, unit thickness), float64."""
@@ -195,10 +197,11 @@ class BatchProblem(NamedTuple):
             if isinstance(v, torch.Tensor)})
 
 
-def stack_problems(probs, device="cpu") -> BatchProblem:
-    """Stack same-mesh Problems (slot order kept) onto ``device``. If any
-    problem carries an elem_mask, every slot gets one (all-ones for the
-    others)."""
+def stack_problems(probs, device="cuda") -> BatchProblem:
+    """Stack same-mesh Problems (slot order kept) onto ``device`` (the card
+    unless the caller asks for the CPU). If any problem carries an
+    elem_mask, every slot gets one (all-ones for the others)."""
+    dev = resolve_device(device)
     p0 = probs[0]
     for p in probs[1:]:
         if (p.nelx, p.nely) != (p0.nelx, p0.nely):
@@ -219,7 +222,7 @@ def stack_problems(probs, device="cpu") -> BatchProblem:
         volfrac=torch.tensor([float(p.volfrac) for p in probs],
                              dtype=torch.float32),
         penal=p0.penal, e_min=p0.e_min, elem_mask=elem_mask)
-    return bp.to(device)
+    return bp.to(dev)
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,7 @@ def test_forward_matches_jax_oracle():
     params, lv, hist = _setup(cfg, B=2)
     ref = np.asarray(jax.jit(lambda p, a, b: jcronet.forward(cfg, p, a, b))(
         params, jnp.asarray(lv), jnp.asarray(hist)))
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, device="cpu")
     out = tcronet.forward(cfg, tp, torch.from_numpy(lv),
                           torch.from_numpy(hist)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
@@ -79,7 +79,7 @@ def test_forward_matches_jax_megakernel():
     params, lv, hist = _setup(cfg, B=2, seed=2)
     mk = np.asarray(jcronet_fused(cfg, params, jnp.asarray(lv),
                                   jnp.asarray(hist), interpret=True))
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, device="cpu")
     w = cronet_fused(cfg, tp, torch.from_numpy(lv), torch.from_numpy(hist))
     assert w.dtype == torch.float32 and w.shape == (2, cfg.p)
     np.testing.assert_allclose(w.numpy(), mk, rtol=1e-4, atol=1e-4)
@@ -104,7 +104,7 @@ def test_forward_bf16_matches_jax_oracle():
     ref = np.asarray(jcronet.forward(
         cfg, params, jnp.asarray(lv, jnp.bfloat16),
         jnp.asarray(hist, jnp.bfloat16)).astype(jnp.float32))
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, device="cpu")
     assert tp["trunk"]["fc1"].dtype == torch.bfloat16
     out = tcronet.forward(cfg, tp, torch.from_numpy(lv).bfloat16(),
                           torch.from_numpy(hist).bfloat16()).float().numpy()
@@ -135,7 +135,7 @@ def test_cast_params_matches_jax(precision):
     params = jax.device_get(materialize(jcronet.param_specs(cfg),
                                         jax.random.key(3)))
     ref = jax.device_get(jhybrid.cast_params(params, precision))
-    out = thybrid.cast_params(params_from_jax(params), precision)
+    out = thybrid.cast_params(params_from_jax(params, device="cpu"), precision)
     for part in ref:
         for k, r in ref[part].items():
             o = out[part][k].float().numpy()

@@ -174,6 +174,68 @@ def test_per_op_kernel_matches_plain(dev, op, dtype):
                                atol=tol * 10)
 
 
+# conv cases: (wrapper, plain, x shape, w shape, kwargs, the kernel a bf16
+# call must launch; every fp32 call launches the SIMT kernel)
+CONV_CASES = {
+    "trunk1": (conv.conv3d, conv.conv3d_plain, (1, 4, 21, 31, 1),
+               (2, 3, 3, 1, 16),
+               dict(depth_padding="causal_same", fuse_silu=True), "simt"),
+    "trunk2": (conv.conv3d, conv.conv3d_plain, (1, 4, 21, 31, 16),
+               (1, 3, 3, 16, 64), dict(depth_padding="same"), "tc"),
+    "branch1": (conv.conv2d, conv.conv2d_plain, (10, 20, 30, 1),
+                (3, 3, 1, 16), dict(fuse_silu=True), "simt"),
+    "branch2": (conv.conv2d, conv.conv2d_plain, (10, 20, 30, 16),
+                (3, 3, 16, 32), {}, "tc"),
+    "odd": (conv.conv2d, conv.conv2d_plain, (2, 7, 9, 3), (3, 3, 3, 5),
+            dict(fuse_silu=True), "simt"),
+    # a ragged channel tile: the last of 40 channels' tiles is part-empty
+    "cout40": (conv.conv2d, conv.conv2d_plain, (10, 20, 30, 16),
+               (3, 3, 16, 40), dict(fuse_silu=True), "tc"),
+    "one_row": (conv.conv2d, conv.conv2d_plain, (4, 1, 37, 16),
+                (3, 3, 16, 32), {}, "tc"),
+    "causal_d4": (conv.conv3d, conv.conv3d_plain, (2, 4, 9, 11, 16),
+                  (2, 3, 3, 16, 16),
+                  dict(depth_padding="causal_same", fuse_silu=True), "tc"),
+    "noncontiguous": (conv.conv3d, conv.conv3d_plain, (1, 4, 21, 31, 16),
+                      (1, 3, 3, 16, 64), dict(fuse_silu=True), "tc"),
+    "large_branch2": (conv.conv2d, conv.conv2d_plain, (10, 20, 60, 16),
+                      (3, 3, 16, 32), dict(fuse_silu=True), "tc"),
+}
+
+
+@pytest.mark.parametrize("case", list(CONV_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernel_choice_counts_and_bits(dev, case, dtype):
+    """Each convolution case launches the kernel kernel_for names (bf16 at
+    Cin 16 on the tensor cores, fp32 on the SIMT kernel) and counts it
+    there; agrees with its plain version within chip_smoke.FUSION_TOL;
+    two calls give the same bits. ``noncontiguous`` reads every other
+    channel of a wider tensor."""
+    kern, plain, xs, ws, kw, bf16_kernel = CONV_CASES[case]
+    gen = torch.Generator().manual_seed(len(case))
+    if case == "noncontiguous":
+        wide = torch.randn(xs[:-1] + (2 * xs[-1],), generator=gen)
+        x = (wide * 0.4).to(dtype).to(dev)[..., ::2]
+        assert not x.is_contiguous()
+    else:
+        x = (torch.randn(xs, generator=gen) * 0.4).to(dtype).to(dev)
+    w = (torch.randn(ws, generator=gen) * 0.4).to(dtype).to(dev)
+    want = bf16_kernel if dtype == torch.bfloat16 else "simt"
+    assert conv.kernel_for(dtype, ws[-2], ws[-1]) == want
+    before = (kern.launches, kern.tc_launches, kern.simt_launches)
+    out = kern(x, w, **kw)
+    again = kern(x, w, **kw)
+    moved = (kern.launches - before[0], kern.tc_launches - before[1],
+             kern.simt_launches - before[2])
+    assert moved == ((2, 2, 0) if want == "tc" else (2, 0, 2))
+    assert torch.equal(out, again)
+    ref = plain(x, w, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    rtol, atol = chip_smoke.FUSION_TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
 @pytest.mark.parametrize("shape,out_hw", [
     ((10, 10, 15, 40), (1, 1)), ((3, 6, 5, 40), (6, 5)),
     ((10, 10, 15, 32), (1, 1))],

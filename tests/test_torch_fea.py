@@ -41,7 +41,7 @@ def _pair(n, nelx=12, nely=4, pad_to=None):
     if pad_to is not None:
         jp = [jfea.pad_problem(p, *pad_to) for p in jp]
         tp = [tfea.pad_problem(p, *pad_to) for p in tp]
-    return jfea.stack_problems(jp), tfea.stack_problems(tp)
+    return jfea.stack_problems(jp), tfea.stack_problems(tp, device="cpu")
 
 
 def _jsolve(bp, X, U0=None, need=None, backend="reference", tol=TOL):
@@ -162,7 +162,7 @@ def test_solve_b_elem_mask_and_idle_slot():
     traw = [tfea.pad_problem(tfea.point_load_problem(10, 4, **s), 12, 6)
             for s in _specs(2, 10)]
     jb = jfea.stack_problems(jraw + [jidle])
-    tb = tfea.stack_problems(traw + [tidle])
+    tb = tfea.stack_problems(traw + [tidle], device="cpu")
     X = np.asarray(jb.elem_mask) * 0.5
     U0 = np.zeros((3, jb.f.shape[1]), np.float32)
     U0[2] = 0.37
@@ -240,3 +240,22 @@ def test_run_simp_matches_reference():
     _, th = tsimp.run_simp(tp, n_iter=5, device="cpu")
     np.testing.assert_allclose(th["c"], jh["c"], rtol=1e-3)
     np.testing.assert_allclose(th["x"], jh["x"], rtol=0, atol=1e-3)
+
+
+def test_stack_problems_and_params_from_jax_default_to_the_card(monkeypatch):
+    """Both functions follow the port's device rule: the card unless the
+    caller asks for the CPU, and an error, never a move to the CPU, when
+    no GPU is present (the check is forced off here, so the test runs on
+    any machine)."""
+    from repro_torch.common import params_from_jax
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    probs = [tfea.point_load_problem(12, 4, **s) for s in _specs(2)]
+    tree = {"trunk": {"fc1": np.ones((3, 2), np.float32)}}
+    for call in (lambda **kw: tfea.stack_problems(probs, **kw),
+                 lambda **kw: params_from_jax(tree, **kw)):
+        for kw in ({}, {"device": "cuda"}, {"device": "cuda:0"}):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call(**kw)
+    assert tfea.stack_problems(probs, device="cpu").f.device.type == "cpu"
+    assert params_from_jax(tree, device="cpu")["trunk"]["fc1"].device.type \
+        == "cpu"

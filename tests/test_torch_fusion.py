@@ -49,7 +49,7 @@ def _both(cfg, params, lv, hist, path, dtype):
                         jfusion.FusionConfig(*PATHS[path]), interpret=True)
     tdt = getattr(torch, dtype)
     before = kernels.launch_counts()
-    out = tfusion.infer(cfg, params_from_jax(params),
+    out = tfusion.infer(cfg, params_from_jax(params, device="cpu"),
                         torch.from_numpy(lv).to(tdt),
                         torch.from_numpy(hist).to(tdt), fc)
     assert kernels.launch_counts() == before     # plain versions on CPU
@@ -65,7 +65,7 @@ def test_fusion_path_matches_jax_fp32(path):
     assert out.shape == (cfg.p,) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-4)
-    plain = tcronet.forward(cfg, params_from_jax(params),
+    plain = tcronet.forward(cfg, params_from_jax(params, device="cpu"),
                             torch.from_numpy(lv)[None],
                             torch.from_numpy(hist)[None])[0]
     np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=1e-4,
@@ -91,7 +91,8 @@ def test_l2l3_returns_cfg_dtype_in_both_packages(dtype):
     cfg, params, lv, hist = _setup(dtype, seed=2)
     ref = jfusion.infer(cfg, params, jnp.asarray(lv), jnp.asarray(hist),
                         interpret=True)
-    out = tfusion.infer(cfg, params_from_jax(params), torch.from_numpy(lv),
+    out = tfusion.infer(cfg, params_from_jax(params, device="cpu"),
+                        torch.from_numpy(lv),
                         torch.from_numpy(hist))
     assert str(ref.dtype) == dtype
     assert out.dtype == getattr(torch, dtype)
@@ -104,7 +105,7 @@ def test_l2l3_returns_cfg_dtype_in_both_packages(dtype):
 def test_infer_rejects_weights_off_cfg_dtype_and_bad_shapes():
     cfg, params, lv, hist = _setup("bfloat16")
     tp = {part: {k: v.float() for k, v in leaves.items()}
-          for part, leaves in params_from_jax(params).items()}
+          for part, leaves in params_from_jax(params, device="cpu").items()}
     with pytest.raises(TypeError, match="cfg.dtype"):
         tfusion.infer(cfg, tp, torch.from_numpy(lv), torch.from_numpy(hist))
     cfg32 = dataclasses.replace(cfg, dtype="float32")

@@ -68,9 +68,11 @@ def test_one_tick_matches_jax_from_shared_state(jparams, n_before):
     jnext = jax.device_get(jstep(jp, jb, lv, jax.tree.map(jnp.asarray, js)))
 
     tb = tfea.stack_problems([tfea.point_load_problem(12, 4, **s)
-                              for s in _specs(4)])
+                              for s in _specs(4)], device="cpu")
     tstep = thybrid.make_hybrid_step(CFG, U_SCALE, 1e9, 3, 1.5, "fp32")
-    tnext = tstep(thybrid.cast_params(params_from_jax(jparams), "fp32"), tb,
+    tparams = thybrid.cast_params(params_from_jax(jparams, device="cpu"),
+                                  "fp32")
+    tnext = tstep(tparams, tb,
                   tfea.load_volume_b(tb), tstate)
 
     for name in ("it", "n_cronet", "n_fea", "hist"):
@@ -95,14 +97,14 @@ def test_one_tick_matches_jax_from_shared_state(jparams, n_before):
 
 def _port_setup(n=4, threshold=1e9):
     params = thybrid.cast_params(params_from_jax(jax.device_get(materialize(
-        jcronet.param_specs(CFG), jax.random.key(1)))), "fp32")
+        jcronet.param_specs(CFG), jax.random.key(1))), device="cpu"), "fp32")
     probs = [tfea.point_load_problem(12, 4, **s) for s in _specs(n)]
     step = thybrid.make_hybrid_step(CFG, U_SCALE, threshold, 3, 1.5, "fp32")
     return params, probs, step
 
 
 def _run(step, params, probs, n_ticks, state=None):
-    bp = tfea.stack_problems(probs)
+    bp = tfea.stack_problems(probs, device="cpu")
     lv = tfea.load_volume_b(bp)
     state = thybrid.init_state(CFG, bp) if state is None else state
     for _ in range(n_ticks):
@@ -123,7 +125,8 @@ def test_slot_invariance_width4_vs_width2():
     params, probs, step = _port_setup(4)
     s4 = _run(step, params, probs, 3)
     s2 = thybrid.HybridState(*[leaf[:2].clone() for leaf in s4])
-    b4, b2 = tfea.stack_problems(probs), tfea.stack_problems(probs[:2])
+    b4 = tfea.stack_problems(probs, device="cpu")
+    b2 = tfea.stack_problems(probs[:2], device="cpu")
     for _ in range(5):
         s4 = step(params, b4, tfea.load_volume_b(b4), s4)
         s2 = step(params, b2, tfea.load_volume_b(b2), s2)
@@ -135,7 +138,7 @@ def test_park_restore_move_are_exact():
     """park -> reset -> restore -> step equals an uninterrupted step, and a
     lane moved to another index continues its trajectory bitwise."""
     params, probs, step = _port_setup(4)
-    bp = tfea.stack_problems(probs)
+    bp = tfea.stack_problems(probs, device="cpu")
     lv = tfea.load_volume_b(bp)
     s = _run(step, params, probs, 4)
     ref = step(params, bp, lv, thybrid.HybridState(*[t.clone() for t in s]))
@@ -148,7 +151,7 @@ def test_park_restore_move_are_exact():
     # move lane 3 onto lane 0 of a batch whose lane 0 holds lane 3's problem
     moved = _run(step, params, probs, 4)
     thybrid.move_slot(moved, 3, 0)
-    bp_m = tfea.stack_problems([probs[3]] + probs[1:])
+    bp_m = tfea.stack_problems([probs[3]] + probs[1:], device="cpu")
     out = step(params, bp_m, tfea.load_volume_b(bp_m), moved)
     _assert_lanes_equal(out, ref, slice(0, 1), slice(3, 4))
 

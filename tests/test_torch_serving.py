@@ -67,7 +67,7 @@ def test_engines_agree_on_the_same_requests(jparams, threshold):
     jdone = jeng.run([JRequest(uid=i, problem=jfea.point_load_problem(
         12, 4, **spec), n_iter=n) for i, (spec, n) in enumerate(REQS)])
     jeng.shutdown()
-    _, tdone = _serve_port(params_from_jax(jparams), threshold)
+    _, tdone = _serve_port(params_from_jax(jparams, device="cpu"), threshold)
     for j, t in zip(jdone, tdone):
         assert (t.cronet_iters, t.fea_iters) == (j.cronet_iters, j.fea_iters)
         assert np.isfinite(t.compliance)
@@ -81,7 +81,7 @@ def test_engines_agree_on_the_same_requests(jparams, threshold):
 def test_engine_densities_are_slot_invariant(jparams):
     """Bitwise: the same requests served on 2 and on 4 slots, with and
     without tracing, give identical densities and counters."""
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, device="cpu")
     _, a = _serve_port(params, 1e9, slots=2)
     eng, b = _serve_port(params, 1e9, slots=4, trace_every=1)
     for x, y in zip(a, b):
@@ -98,7 +98,7 @@ def test_engine_preemption_and_ladder_keep_results(jparams):
     on a ladder engine; every density equals the unpreempted run's. The
     occupants run 12 iterations, so each still has more than the 2 ticks
     left that make waiting too slow for the urgent request."""
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, device="cpu")
     long_reqs = [(spec, 12) for spec, _ in REQS]
     _, base = _serve_port(params, 1e9, slots=2, reqs=long_reqs)
     _, base_u = _serve_port(params, 1e9, slots=2, reqs=REQS[:1])
@@ -134,7 +134,7 @@ def test_shape_padded_engine_and_param_swap(jparams):
     """A shape-class engine serves a 10x4 request padded onto 12x4 and
     crops the density back; swap_params between activations stamps the
     new model tag and serves with the new weights."""
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, device="cpu")
     eng = TopoServingEngine(CFG, params, U_SCALE, slots=2, device="cpu",
                             shape_padded=True, error_threshold=1e9,
                             model_tag="a", metrics=MetricsRegistry())
@@ -155,7 +155,7 @@ def test_shape_padded_engine_and_param_swap(jparams):
 
 def test_engine_rejects_other_meshes_and_missing_gpu():
     params = params_from_jax(jax.device_get(materialize(
-        jcronet.param_specs(CFG), jax.random.key(0))))
+        jcronet.param_specs(CFG), jax.random.key(0))), device="cpu")
     eng = TopoServingEngine(CFG, params, U_SCALE, slots=2, device="cpu",
                             metrics=MetricsRegistry())
     with pytest.raises(ValueError, match="mesh"):
