@@ -10,15 +10,19 @@ Phases, one JSON line each on stdout:
   2. kernels — each kernel wrapper against its plain PyTorch version on the
      card, at the main path's shapes (CRONet medium, 4 slots): cronet_fused
      at fp32 and bf16, solve_b_fused with a mix of need flags, an idle slot,
-     a warm start and a shape-padded (elem_mask) batch; times of both.
+     a warm start and a shape-padded (elem_mask) batch, bitwise equal to its
+     plain loop (U and iterations) in both; times of both, and the CG
+     kernel's us per iteration of its longest slot.
   3. fusion — (a) each per-op kernel (conv2d, conv3d, gemm, maxpool2d,
      adaptive_avg_pool2d/3d) against its plain version at CRONet medium's
-     layer shapes and at odd shapes, fp32 and bf16 (the adaptive pools and
-     the convolutions also bitwise equal over two calls), timed beside its
-     plain version and the one PyTorch call for the same function (the
-     convolutions in bf16 too, beside F.conv2d/F.conv3d in bf16, each case
-     printed); every bf16 convolution call at Cin 16 must launch the
-     tensor-core kernel and every fp32 call the SIMT kernel (counted); (b)
+     layer shapes and at odd shapes, fp32 and bf16 (the adaptive pools, the
+     convolutions and gemm also bitwise equal over two calls), timed beside
+     its plain version and the one PyTorch call for the same function (the
+     convolutions and gemm in bf16 too, beside F.conv2d/F.conv3d and
+     torch.matmul in bf16, each case printed); every bf16 convolution call
+     at Cin 16 must launch the tensor-core kernel and every fp32 call the
+     SIMT kernel (counted); torch.profiler must see one device kernel per
+     gemm call at every case (one launch, whatever K); (b)
      core.fusion.infer on the none / l1 / l2l3 paths at small, medium and
      large (fp32) against core.cronet.forward at 1e-4, with the median
      latency of 30 synchronised calls and the launches per call; every
@@ -233,7 +237,8 @@ def phase_kernels(ctx):
         rel = ((U - Ur).norm(dim=1)
                / Ur.norm(dim=1).clamp_min(1e-30)).cpu().numpy()
         dits = (its - itr).abs().cpu().numpy()
-        ok = bool(np.all(rel <= 1e-4) and np.all(dits <= 1))
+        bitwise = bool(torch.equal(U, Ur) and torch.equal(its, itr))
+        ok = bool(np.all(rel <= 1e-4) and np.all(dits <= 1)) and bitwise
         if nd is not None:   # the need=False slot keeps its warm start
             ok = ok and bool(torch.equal(U[1], (u0 * b.free_mask)[1]))
             ok = ok and int(its[1]) == 0 and int(its[2]) == 0
@@ -243,13 +248,14 @@ def phase_kernels(ctx):
         cg_report[label] = {"rel_l2": rel.tolist(),
                             "its": its.cpu().tolist(),
                             "its_plain": itr.cpu().tolist(),
-                            "bitwise": bool(torch.equal(U, Ur)), "ok": ok}
+                            "bitwise": bitwise, "ok": ok}
     b, x, u0, nd = cases["need_idle_warm"]
     k_ms = cuda_ms(lambda: cg_fused.solve_b_fused(b, x, U0=u0, need=nd),
                    reps=10)
     p_ms = cuda_ms(lambda: cg_fused.solve_b_plain(b, x, U0=u0, need=nd),
                    reps=2)
     its_warm = cg_report["need_idle_warm"]["its"]
+    us_per_iter = 1e3 * k_ms / max(its_warm)    # the longest slot's chain
     ne, ndof = cfg.nelx * cfg.nely, 2 * (cfg.nelx + 1) * (cfg.nely + 1)
     # per slot iteration: KE apply (8 rows x 15) + e scale (8) per element;
     # assembly (3), free mask (1), two dots, two axpys, precondition (2),
@@ -262,10 +268,12 @@ def phase_kernels(ctx):
         replaces="src/repro/kernels/cg_fused.py:194",
         max_abs_err=err_cg, ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms,
         **bound(nbytes, flops, H100_FP32_FLOPS), library_ms=None)
+    rows["solve_b_fused"]["us_per_iteration"] = us_per_iter
     emit({"phase": "kernel", "name": "solve_b_fused", "cases": cg_report,
-          "tol": "U rel L2 <= 1e-4, iterations +-1", "ok": cg_ok,
+          "tol": "bitwise (U and iterations); U rel L2 <= 1e-4, "
+                 "iterations +-1", "ok": cg_ok,
           "kernel_ms": k_ms, "plain_ms": p_ms, "iterations_timed": its_warm,
-          "library_ms": None})
+          "us_per_iteration": us_per_iter, "library_ms": None})
     ctx["rows"] = rows
     if not (ok32 and ok16 and ok16_32 and cg_ok):
         raise AssertionError("a kernel disagrees with its plain version")
@@ -395,6 +403,27 @@ def fusion_call(name, args, dt, dev, gen):
 
 FUSION_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-1)}
 CONV_NAMES = ("conv2d", "conv3d")
+BF16_TIMED = CONV_NAMES + ("gemm",)     # per-op kernels timed in bf16 too
+
+
+def kernels_per_call(calls) -> dict:
+    """Device kernels torch.profiler sees per call of each of ``calls``
+    (each called once, in one profiled window), by name; every
+    instantiation of gemm_kernel counts as "gemm_kernel"."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sync()
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in calls:
+            fn()
+        sync()
+    seen = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = "gemm_kernel" if "gemm_kernel" in e.name else e.name
+            seen[key] = seen.get(key, 0) + 1
+    return {k: n / len(calls) for k, n in seen.items()}
 
 
 def _conv_counts(name):
@@ -453,12 +482,12 @@ def phase_fusion(ctx):
     from repro_torch.timing import cuda_ms, graph_ms
     dev = ctx["device"]
     gen = torch.Generator().manual_seed(1)
-    ok_all, per_kernel = True, {}
+    ok_all, per_kernel, gemm_calls = True, {}, []
     for name, cases in fusion_cases(ctx["cfg"]).items():
         rep = {"cases": {}, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "call_ms": 0.0, "bytes": 0.0, "flops": 0.0,
                "max_abs_err": 0.0}
-        if name in CONV_NAMES:      # bf16 sums over the same calls
+        if name in BF16_TIMED:      # bf16 sums over the same calls
             rep["bfloat16"] = {"ms": 0.0, "library_ms": 0.0,
                                "bound_ms": 0.0}
         for label, per_fwd, args in cases:
@@ -474,8 +503,8 @@ def phase_fusion(ctx):
                     sync()
                     ok = ok and out.dtype == dt and bool(torch.allclose(
                         out.float(), ref.float(), rtol=rtol, atol=atol))
-                    if name.startswith(("adaptive", "conv")):  # fixed order
-                        ok = ok and bool(torch.equal(out, kern(fs)))
+                    if name.startswith(("adaptive", "conv", "gemm")):
+                        ok = ok and bool(torch.equal(out, kern(fs)))  # order
                     errs.append(float((out.float() - ref.float())
                                       .abs().max()))
                 ok_all = ok_all and ok
@@ -484,6 +513,8 @@ def phase_fusion(ctx):
                 if name in CONV_NAMES:
                     case["kernel"] = _check_conv_kernel(
                         name, args, dname, before, calls=4)
+                if name == "gemm":
+                    gemm_calls.append(functools.partial(kern, False))
                 if dname == "float32":      # timed as the l1 path calls it
                     case.update(
                         ms=graph_ms(lambda: kern(True)),
@@ -498,17 +529,21 @@ def phase_fusion(ctx):
                             rep[key] += per_fwd * case[key]
                         rep["bytes"] += per_fwd * nbytes
                         rep["flops"] += per_fwd * flops
-                elif name in CONV_NAMES:    # bf16, as Fig 7 calls it
+                elif name in BF16_TIMED:    # bf16, as Fig 7 calls it
                     case.update(
                         ms=graph_ms(lambda: kern(True)),
                         library_ms=graph_ms(lib),
                         **bound(nbytes, flops, H100_BF16_FLOPS
-                                if case["kernel"] == "tc"
+                                if case.get("kernel") == "tc"
                                 else H100_FP32_FLOPS))
                     if per_fwd:
                         for key in ("ms", "library_ms", "bound_ms"):
                             rep["bfloat16"][key] += per_fwd * case[key]
                 rep["cases"][f"{label}/{dname}"] = case
+        if name == "gemm":          # one device kernel per call, any K
+            rep["device_kernels_per_call"] = kernels_per_call(gemm_calls)
+            ok_all = ok_all and rep["device_kernels_per_call"] == {
+                "gemm_kernel": 1.0}
         per_kernel[name] = rep
         emit({"phase": "fusion_kernel", "name": name, **rep})
 
@@ -567,6 +602,8 @@ def phase_fusion(ctx):
             call_ms=rep["call_ms"], plain_ms=rep["plain_ms"],
             **bound(rep["bytes"], rep["flops"], H100_FP32_FLOPS),
             library_ms=rep["library_ms"], launches=counts[name])
+        if name in BF16_TIMED:
+            ctx["rows"][name]["bf16_sums"] = rep["bfloat16"]
         if name in CONV_NAMES:
             # kernel_for's split: the SIMT kernel's launches on the fusion
             # paths (fp32); the tensor-core kernel's, Fig 7's (bf16), are
@@ -574,8 +611,7 @@ def phase_fusion(ctx):
             tc, simt = conv_simt[name]
             ctx["rows"][name]["split"] = {
                 "simt": {"launches": simt, "path": "fusion (b), fp32"},
-                "tc": {"launches": None, "path": "breakdown, Fig 7, bf16"},
-                "bf16_sums": rep["bfloat16"]}
+                "tc": {"launches": None, "path": "breakdown, Fig 7, bf16"}}
             if tc:
                 raise AssertionError(f"{name}: an fp32 fusion path launched "
                                      "the tensor-core kernel")

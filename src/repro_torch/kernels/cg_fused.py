@@ -2,11 +2,12 @@
 
 Replaces the Pallas kernel ``repro/kernels/cg_fused.py::solve_b_fused``
 (``_make_solve_kernel``, one ``pallas_call`` for the whole convergence
-loop). The setup — Jacobi diagonal, initial residual, RZ, fnorm, rnorm —
-runs as plain tensor ops (``_setup``), as in the JAX package; then
-``csrc/cg_fused.cu`` runs every slot's loop in one launch, one thread block
-per slot with its Krylov state in shared memory (see that file for the
-design and what bounds it).
+loop). ``csrc/cg_fused.cu`` runs every slot's solve in one launch, the
+setup included (Jacobi diagonal, initial residual, RZ, fnorm, rnorm, which
+the JAX package and ``_setup`` compute as tensor ops): one thread block per
+slot with its Krylov state in registers and shared memory, each reduction
+folded in ``fea2d.tree_sum``'s order in two barriers (see that file for
+the design, what bounds it and why the fold is the same tree).
 
 Plain version: ``solve_b_plain``, the reference loop of
 ``repro.fea.fea2d.solve_b`` in PyTorch (a host-synchronised while loop
@@ -65,10 +66,35 @@ def solve_b_plain(bp: "fea2d.BatchProblem", X, tol: float = 1e-6,
     return U, its
 
 
+MAX_NODES = 2048        # csrc/cg_fused.cu: kMaxNodes
+
+
+def block_threads(pn: int) -> int:
+    """Threads a block for a mesh whose node count rounds up to ``pn``: a
+    quarter of ``pn`` (at least a warp), so a thread owns four nodes and
+    keeps their state in registers (30x20: 256 threads; 60x20: 512)."""
+    return max(32, pn // 4)
+
+
+def _host_ke(KE: torch.Tensor):
+    """KE's 64 floats in host memory, for the kernel's by-value parameter.
+    Kept on the tensor with its version counter, so a tick's problems, which
+    share one KE tensor, copy it to the host once."""
+    hit = getattr(KE, "_cg_host_ke", None)
+    if hit is None or hit[0] != KE._version:
+        vals = KE.detach().to("cpu", torch.float32).reshape(-1).tolist()
+        if len(vals) != 64:
+            raise ValueError(f"solve_b_fused: KE {tuple(KE.shape)}, need "
+                             "(8, 8)")
+        hit = (KE._version, (ctypes.c_float * 64)(*vals))
+        KE._cg_host_ke = hit
+    return hit[1]
+
+
 def _lib():
     return _build.function(
         "cg_fused", "cg_fused_solve", ctypes.c_int,
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -92,12 +118,19 @@ def solve_b_fused(bp: "fea2d.BatchProblem", X, tol: float = 1e-6,
     if tuple(bp.f.shape) != (B, ndof):
         raise ValueError(f"solve_b_fused: loads {tuple(bp.f.shape)} do not "
                          f"match densities {tuple(X.shape)}")
-    diag, need, U, R, Z, RZ, fnorm = _setup(bp, X, U0, need)
-    rnorm = fea2d.tree_norm(R)
-    pow2 = 1 << max(ndof - 1, 0).bit_length()
+    nnode = ndof // 2
+    pn = 1 << max(nnode - 1, 0).bit_length()
+    if pn > MAX_NODES:
+        raise ValueError(f"solve_b_fused: {nnode} nodes; the kernel takes "
+                         f"up to {MAX_NODES}")
+    if U0 is not None and tuple(U0.shape) != (B, ndof):
+        raise ValueError(f"solve_b_fused: warm start {tuple(U0.shape)}, "
+                         f"need {(B, ndof)}")
     dev = X.device
-    ins = [X, bp.elem_mask, diag, bp.free_mask, bp.KE, need.to(torch.float32),
-           fnorm, U, R, Z, RZ, rnorm]
+    ke = _host_ke(bp.KE)
+    if need is None:
+        need = torch.ones((B,), dtype=torch.bool, device=dev)
+    ins = [X, bp.elem_mask, bp.f, bp.free_mask, need.to(torch.float32), U0]
     ins = [None if t is None else t.to(torch.float32).contiguous()
            for t in ins]
     for t in ins:
@@ -107,9 +140,10 @@ def solve_b_fused(bp: "fea2d.BatchProblem", X, tol: float = 1e-6,
     U_out = torch.empty((B, ndof), dtype=torch.float32, device=dev)
     its = torch.empty((B,), dtype=torch.int32, device=dev)
     lib, fn = _lib()
-    err = fn(*[0 if t is None else t.data_ptr() for t in ins],
-             U_out.data_ptr(), its.data_ptr(), B, nelx, nely, pow2,
-             float(bp.e_min), float(1 - bp.e_min), float(tol), int(max_iter),
+    ptrs = [None if t is None else t.data_ptr() for t in ins]
+    err = fn(*ptrs[:4], ctypes.cast(ke, ctypes.c_void_p), *ptrs[4:],
+             U_out.data_ptr(), its.data_ptr(), B, nelx, nely, pn,
+             block_threads(pn), float(bp.e_min), float(1 - bp.e_min), float(tol), int(max_iter),
              *_build.device_stream(dev))
     _build.check(lib, "cg_fused", err)
     solve_b_fused.launches += 1

@@ -107,6 +107,101 @@ def test_solve_b_fused_matches_plain(dev, masked):
     assert int(its[1]) == 0
 
 
+@pytest.mark.parametrize("size", ["medium", "large"])
+@pytest.mark.parametrize("width", [1, 4, 8])
+def test_solve_b_fused_bitwise_equals_plain(dev, size, width):
+    """U and iteration counts bitwise equal to the plain loop at 30x20 and
+    60x20 and widths 1, 4 and 8: the fold keeps fea2d.tree_sum's tree and
+    the build keeps --fmad=false. The batch mixes need flags, an idle
+    (zero-load) slot and a warm start; then the same slots shape-padded
+    (elem_mask) from cold."""
+    cfg = get_cronet_config(size)
+    gen = torch.Generator().manual_seed(width)
+    probs = [fea2d.point_load_problem(
+        cfg.nelx, cfg.nely, load_node=((5 * i) % (cfg.nelx - 1), 0),
+        load=(0.0, -1.0 - 0.1 * i)) for i in range(width)]
+    if width > 2:
+        probs[2] = fea2d.idle_problem(cfg.nelx, cfg.nely)
+    bp = fea2d.stack_problems(probs, device=dev)
+    X = (0.2 + 0.8 * torch.rand((width, cfg.nely, cfg.nelx),
+                                generator=gen)).to(dev)
+    U0, _ = cg_fused.solve_b_plain(bp, X, max_iter=5)
+    need = torch.tensor([i % 4 != 1 for i in range(width)], device=dev)
+    U, its = cg_fused.solve_b_fused(bp, X, U0=U0, need=need)
+    Ur, itr = cg_fused.solve_b_plain(bp, X, U0=U0, need=need)
+    assert torch.equal(U, Ur) and torch.equal(its, itr), (its, itr)
+    assert int(its.max()) > 50
+    small = [fea2d.pad_problem(fea2d.point_load_problem(
+        cfg.nelx - 2, cfg.nely - 2, load_node=((3 * i) % (cfg.nelx - 3), 0)),
+        cfg.nelx, cfg.nely) for i in range(width)]
+    bpm = fea2d.stack_problems(small, device=dev)
+    Xm = bpm.elem_mask * X
+    U, its = cg_fused.solve_b_fused(bpm, Xm)
+    Ur, itr = cg_fused.solve_b_plain(bpm, Xm)
+    assert torch.equal(U, Ur) and torch.equal(its, itr), (its, itr)
+
+
+GEMM_SHAPES = {name: (m, k, n, act) for name, (m, k, n, act) in {
+    "trunk_fc1": (1, 4800, 40, "silu"), "fc2": (1, 40, 2560, None),
+    "rnn_wx": (1, 32, 64, None), "rnn_wh": (1, 64, 64, None),
+    "branch_fc1": (1, 64, 40, "silu"), "odd_33x70x9": (33, 70, 9, "tanh"),
+}.items()}
+GEMM_DTYPES = {"f32": (torch.float32, torch.float32),
+               "bf16": (torch.bfloat16, torch.bfloat16),
+               "x32_w16": (torch.float32, torch.bfloat16),
+               "x16_w32": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("act", [None, "silu", "tanh"])
+@pytest.mark.parametrize("dtypes", list(GEMM_DTYPES))
+@pytest.mark.parametrize("shape", list(GEMM_SHAPES))
+def test_gemm_cluster_kernel_matches_plain(dev, shape, dtypes, act):
+    """Every fusion shape, fp32 / bf16 / mixed, each activation: within
+    chip_smoke.FUSION_TOL of gemm_plain (x's dtype sets the bar); the same
+    bits over two calls; each call adds exactly 1 to gemm.launches."""
+    M, K, N, _ = GEMM_SHAPES[shape]
+    x_dt, w_dt = GEMM_DTYPES[dtypes]
+    gen = torch.Generator().manual_seed(K + N)
+    x = (torch.randn((M, K), generator=gen) * 0.3).to(x_dt).to(dev)
+    w = (torch.randn((K, N), generator=gen) * 0.3).to(w_dt).to(dev)
+    before = gemm.gemm.launches
+    out = gemm.gemm(x, w, activation=act)
+    assert gemm.gemm.launches == before + 1
+    again = gemm.gemm(x, w, activation=act)
+    assert gemm.gemm.launches == before + 2
+    assert torch.equal(out, again)
+    ref_ = gemm.gemm_plain(x, w, act)
+    assert out.dtype == x_dt and out.shape == ref_.shape
+    rtol, atol = chip_smoke.FUSION_TOL[str(x_dt).split(".")[-1]]
+    torch.testing.assert_close(out.float(), ref_.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("shape", list(GEMM_SHAPES))
+def test_gemm_is_one_kernel_per_call(dev, shape):
+    """torch.profiler sees exactly one device kernel per gemm call, trunk
+    fc1's long K included (no second reduction kernel, no memset)."""
+    M, K, N, act = GEMM_SHAPES[shape]
+    x = torch.randn((M, K), device=dev)
+    w = torch.randn((K, N), device=dev)
+    gemm.gemm(x, w, activation=act)         # build and load first
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            gemm.gemm(x, w, activation=act)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "gemm_kernel" in e.name]
+    others = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "gemm_kernel" not in e.name]
+    assert len(kernels) == 3, [e.name for e in kernels]
+    assert not others, others
+
+
 def test_engine_serves_on_the_card(dev):
     cfg = dataclasses.replace(get_cronet_config("small"), hist_len=3)
     eng = TopoServingEngine(cfg, init_params(cfg, 0, device=dev), 50.0,
