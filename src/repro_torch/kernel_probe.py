@@ -95,6 +95,103 @@ GEMM_CASES = {       # (M, K, N, activation), per forward
     "branch_fc1": (1, 64, 40, "silu", 1)}
 
 
+def _cuts(names) -> str:
+    """A preamble that defines CUT_<NAME> 1 when -DNO_<NAME> is given,
+    else 0, for each of ``names``."""
+    return "".join(f"#ifdef NO_{n}\n#define CUT_{n} 1\n#else\n#define "
+                   f"CUT_{n} 0\n#endif\n" for n in names)
+
+
+_TIMER = ("#ifdef TIMED\n  long long t_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+          "  long long t0 = clock64();\n#define MARK(k) { const long long "
+          "t1 = clock64(); t_acc[k] += t1 - t0; t0 = t1; }\n#else\n"
+          "#define MARK(k)\n#endif\n")
+
+# cronet_fused (csrc/cronet_fused.cu): the three kernels alone (the others'
+# launches cut), and the head with each of its phases cut; the timed build
+# counts the head's SM cycles by phase in thread 0 of each slot's block
+CRONET_PHASES = ("aap3d", "fc1", "fc2", "rnn", "bfc")
+CRONET_HOOKS = [
+    ("#include <cuda_runtime.h>\n",
+     "#include <cuda_runtime.h>\n" + _cuts(
+         ("TRUNK", "BRANCH", "HEAD", "FC1", "FC2", "RNN", "BFC"))),
+    ("  trunk_kernel<T><<<", "  if (!CUT_TRUNK) trunk_kernel<T><<<"),
+    ("  branch_kernel<T><<<", "  if (!CUT_BRANCH) branch_kernel<T><<<"),
+    ("  head_kernel<T><<<", "  if (!CUT_HEAD) head_kernel<T><<<"),
+    ("  const int b = blockIdx.x, tid = threadIdx.x;\n",
+     "  const int b = blockIdx.x, tid = threadIdx.x;\n" + _TIMER),
+    ("  for (int i = tid; i < HID; i += blockDim.x) h[i] = 0.0f;\n"
+     "  __syncthreads();\n",
+     "  for (int i = tid; i < HID; i += blockDim.x) h[i] = 0.0f;\n"
+     "  __syncthreads();\n  MARK(0)\n"),
+    ("  if (tid < G1 * MID) {", "  if (!CUT_FC1 && tid < G1 * MID) {"),
+    ("    tmid[tid] = silu(s);\n  }\n  __syncthreads();\n",
+     "    tmid[tid] = silu(s);\n  }\n  __syncthreads();\n  MARK(1)\n"),
+    ("  for (int n = tid; n < P; n += blockDim.x) {\n    float s = 0.0f;\n"
+     "    for (int k = 0; k < MID; ++k) s += tmid[k]",
+     "  for (int n = tid; n < (CUT_FC2 ? 0 : P); n += blockDim.x) {\n"
+     "    float s = 0.0f;\n    for (int k = 0; k < MID; ++k) s += tmid[k]"),
+    ("  // RNN: h = tanh(x_t @ Wx + h @ Wh), h0 = 0\n",
+     "  MARK(2)\n  // RNN: h = tanh(x_t @ Wx + h @ Wh), h0 = 0\n"),
+    ("  for (int t = 0; t < Tn; ++t) {\n    float hn = 0.0f;",
+     "  for (int t = 0; t < (CUT_RNN ? 0 : Tn); ++t) {\n    float hn = 0.0f;"),
+    ("  if (tid < MID) {\n    float s = 0.0f;\n"
+     "    for (int k = 0; k < HID; ++k)",
+     "  MARK(3)\n  if (!CUT_BFC && tid < MID) {\n    float s = 0.0f;\n"
+     "    for (int k = 0; k < HID; ++k)"),
+    ("    for (int k = 0; k < MID; ++k) s += bmid[k]",
+     "    for (int k = 0; k < (CUT_BFC ? 0 : MID); ++k) s += bmid[k]"),
+    ("    out[(size_t)b * P + n] = s * tout[n];\n  }\n}",
+     "    out[(size_t)b * P + n] = s * tout[n];\n  }\n  MARK(4)\n"
+     "#ifdef TIMED\n  __syncthreads();\n  if (tid == 0)\n"
+     "    for (int k = 0; k < 5; ++k) out[(size_t)b * P + k] = "
+     "(float)t_acc[k];\n#endif\n}"),
+]
+CRONET_BUILDS = {"full": [], "trunk_only": ["NO_BRANCH", "NO_HEAD"],
+                 "branch_only": ["NO_TRUNK", "NO_HEAD"],
+                 "head_only": ["NO_TRUNK", "NO_BRANCH"],
+                 "no_fc1": ["NO_FC1"], "no_fc2": ["NO_FC2"],
+                 "no_rnn": ["NO_RNN"], "no_bfc": ["NO_BFC"],
+                 "timed": ["TIMED"]}
+
+# slstm_fused (csrc/slstm.cu): the step with the grid barrier, the h
+# re-read, the dot products or the gate update cut; the timed build counts
+# each phase's SM cycles a step in thread 0 of block 0
+SLSTM_PHASES = ("h_read", "dots", "gate", "barrier")
+SLSTM_HOOKS = [
+    ("namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n"
+     + _cuts(("BARRIER", "HREAD", "DOTS", "GATE"))),
+    ("  for (int t = 0; t < S; ++t) {\n", _TIMER
+     + "  for (int t = 0; t < S; ++t) {\n"),
+    ("    if (t > 0)\n      for (int idx = tid; idx < B * dh;",
+     "    if (t > 0 && !CUT_HREAD)\n      for (int idx = tid; idx < B * dh;"),
+    ("    if (own_wx) wx_own = ld(wx, ((size_t)wb * S + t) * 4 * d + wcol);\n"
+     "    __syncthreads();\n",
+     "    if (own_wx) wx_own = ld(wx, ((size_t)wb * S + t) * 4 * d + wcol);\n"
+     "    __syncthreads();\n    MARK(0)\n"),
+    ("    for (int b0 = 0; b0 < B; b0 += kBatchRegs) {",
+     "    for (int b0 = 0; b0 < (CUT_DOTS ? 0 : B); b0 += kBatchRegs) {"),
+    ("                            (size_t)(qq / U) * d + col0 + (qq % U));\n"
+     "    }\n    __syncthreads();\n",
+     "                            (size_t)(qq / U) * d + col0 + (qq % U));\n"
+     "    }\n    __syncthreads();\n    MARK(1)\n"),
+    ("      const float z = tanhf(pre[0]);\n",
+     "#if CUT_GATE\n      const float h = pre[0] + pre[1] + pre[2] + pre[3];\n"
+     "#else\n      const float z = tanhf(pre[0]);\n"),
+    ("      ms[idx] = m_new;\n", "      ms[idx] = m_new;\n#endif\n"),
+    ("    if (t + 1 < S) grid.sync();  // h of step t visible to every block\n"
+     "  }\n}",
+     "    MARK(2)\n    if (!CUT_BARRIER && t + 1 < S) grid.sync();\n"
+     "    MARK(3)\n  }\n#ifdef TIMED\n  if (blockIdx.x == 0 && tid == 0)\n"
+     "    for (int k = 0; k < 4; ++k) st(out, k, (float)t_acc[k] / S);\n"
+     "#endif\n}"),
+]
+SLSTM_BUILDS = {"full": [], "no_barrier": ["NO_BARRIER"],
+                "no_h_read": ["NO_HREAD"], "no_dots": ["NO_DOTS"],
+                "no_gate": ["NO_GATE"], "timed": ["TIMED"]}
+
+
 def _edit(src: str, hooks, name: str) -> str:
     for anchor, repl in hooks:
         if anchor not in src:
@@ -315,12 +412,101 @@ def probe_cg(out_dir: Path):
     return report
 
 
+def probe_cronet(out_dir: Path):
+    """cronet_fused at medium, B = 1 and 4, fp32 and bf16: us by graph
+    replay of each build, and the timed build's head cycles by phase."""
+    import torch
+    from repro_torch.common import init_params
+    from repro_torch.configs.cronet import get_cronet_config
+    from repro_torch.fea import fea2d, hybrid
+    from repro_torch.kernels import cronet_pipeline
+    from repro_torch.timing import graph_ms
+    libs = build(out_dir, "cronet_fused", CRONET_HOOKS, CRONET_BUILDS, [])
+    for lib in libs.values():
+        lib.cronet_fused_forward.argtypes = cronet_pipeline.ARGTYPES
+    import chip_smoke
+    cfg = get_cronet_config("medium")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    p32 = hybrid.cast_params(init_params(cfg, seed=0, device=dev), "fp32")
+    report = {}
+    for B in (1, 4):
+        bp = fea2d.stack_problems(chip_smoke.problems(fea2d, cfg, B),
+                                  device=dev)
+        lv = fea2d.load_volume_b(bp)
+        hist = torch.rand((B, cfg.hist_len, cfg.nely, cfg.nelx, 1),
+                          generator=gen).to(dev)
+        for dname, prec in (("float32", "fp32"), ("bfloat16", "bf16")):
+            p = hybrid.cast_params(p32, prec)
+            dt = getattr(torch, dname)
+            args, out, keep = cronet_pipeline.launch_args(
+                cfg, p, lv.to(dt), hist.to(dt))
+            row = {}
+            for name, lib in libs.items():
+                if name == "timed":
+                    continue
+
+                def call(lib=lib):
+                    err = lib.cronet_fused_forward(*args)
+                    if err:
+                        raise RuntimeError(f"kernel_probe: cronet error "
+                                           f"{err} in {name}")
+                row[f"{name}_us"] = 1e3 * graph_ms(call, reps=20, replays=10)
+            err = libs["timed"].cronet_fused_forward(*args)
+            if err:
+                raise RuntimeError(f"kernel_probe: cronet error {err}")
+            torch.cuda.synchronize()
+            cyc = out[:, :len(CRONET_PHASES)].double().cpu()
+            row["head_cycles"] = dict(zip(CRONET_PHASES, cyc[0].tolist()))
+            report[f"B{B}/{dname}"] = row
+    return report
+
+
+def probe_slstm(out_dir: Path):
+    """slstm_fused at xlstm-1.3b's widths (B 8, S 4096, 4 heads of 512,
+    fp32 wx, R scaled by 1/sqrt(dh)): ms by CUDA events of each build, and
+    the timed build's SM cycles a step by phase."""
+    import torch
+    from repro_torch.kernels import slstm
+    from repro_torch.timing import cuda_ms
+    libs = build(out_dir, "slstm", SLSTM_HOOKS, SLSTM_BUILDS, [])
+    for lib in libs.values():
+        lib.slstm_forward.argtypes = slstm.ARGTYPES
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, S, nh, dh = 8, 4096, 4, 512
+    wx = torch.randn((B, S, 4 * nh * dh), generator=gen, device=dev)
+    r = torch.randn((nh, dh, 4 * dh), generator=gen, device=dev) * dh ** -0.5
+    args, out, keep = slstm.launch_args(wx, r)
+    report = {"shape": [B, S, nh, dh]}
+    for name, lib in libs.items():
+        def call(lib=lib):
+            err = lib.slstm_forward(*args)
+            if err:
+                raise RuntimeError(f"kernel_probe: slstm error {err} in "
+                                   f"{name}")
+        ms = cuda_ms(call, reps=3)
+        if name == "timed":
+            torch.cuda.synchronize()
+            report["cycles_per_step"] = dict(zip(
+                SLSTM_PHASES, out.reshape(-1)[:len(SLSTM_PHASES)].tolist()))
+            report["timed_ms"] = ms
+        else:
+            report[f"{name}_ms"] = ms
+            report[f"{name}_us_per_step"] = 1e3 * ms / S
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--build-dir", default="build/kernel_probe")
     ap.add_argument("--cg-wrapper-only", action="store_true",
                     help="only time solve_b_fused calls (any tree's port)")
+    ap.add_argument("--cronet", action="store_true",
+                    help="only cronet_fused, by kernel and by head phase")
+    ap.add_argument("--slstm", action="store_true",
+                    help="only slstm_fused, by phase of a step")
     args = ap.parse_args()
     import sys
     import torch
@@ -334,6 +520,13 @@ def main():
     out_dir = Path(args.build_dir)
     if args.cg_wrapper_only:
         text = json.dumps({"card": smi, "cg": probe_cg_wrapper()})
+    elif args.cronet or args.slstm:
+        rep = {"card": smi}
+        if args.cronet:
+            rep["cronet"] = probe_cronet(out_dir)
+        if args.slstm:
+            rep["slstm"] = probe_slstm(out_dir)
+        text = json.dumps(rep)
     else:
         text = json.dumps({"card": smi, "gemm": probe_gemm(out_dir),
                            "cg": probe_cg(out_dir)})

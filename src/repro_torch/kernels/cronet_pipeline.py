@@ -38,21 +38,22 @@ def cronet_fused_plain(cfg: CRONetConfig, params: Params, load_vol, hist):
     return cronet.forward(cfg, params, load_vol, hist).float()
 
 
+# cronet_fused_forward's C signature
+ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+
 def _lib():
-    return _build.function(
-        "cronet_fused", "cronet_fused_forward", ctypes.c_int,
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_void_p])
+    return _build.function("cronet_fused", "cronet_fused_forward",
+                           ctypes.c_int, ARGTYPES)
 
 
-def cronet_fused(cfg: CRONetConfig, params: Params, load_vol: torch.Tensor,
-                 hist: torch.Tensor) -> torch.Tensor:
-    """load_vol (B, 4, ny+1, nx+1, 1), hist (B, T, ny, nx, 1) -> (B, p)
-    float32. CUDA tensors launch the kernel (or raise); CPU tensors run
-    ``cronet_fused_plain``."""
-    if load_vol.device.type == "cpu":
-        return cronet_fused_plain(cfg, params, load_vol, hist)
+def launch_args(cfg: CRONetConfig, params: Params, load_vol: torch.Tensor,
+                hist: torch.Tensor):
+    """``(args, out, keep)``: the arguments of ``cronet_fused_forward`` for
+    CUDA inputs (checked as the wrapper checks them), the output they
+    write, and the tensors that must outlive the launch."""
     if load_vol.device.type != "cuda":
         raise ValueError(f"cronet_fused: unsupported device {load_vol.device}")
     dt, code = load_vol.dtype, _build.dtype_code(load_vol)
@@ -84,10 +85,22 @@ def cronet_fused(cfg: CRONetConfig, params: Params, load_vol: torch.Tensor,
             cfg.mid, cfg.p]
     c_dims = (ctypes.c_int * len(dims))(*dims)
     c_ws = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
+    args = (code, lv.data_ptr(), hi.data_ptr(), c_ws, S.data_ptr(),
+            feats.data_ptr(), out.data_ptr(), c_dims,
+            *_build.device_stream(dev))
+    return args, out, (lv, hi, ws, S, feats, c_dims, c_ws)
+
+
+def cronet_fused(cfg: CRONetConfig, params: Params, load_vol: torch.Tensor,
+                 hist: torch.Tensor) -> torch.Tensor:
+    """load_vol (B, 4, ny+1, nx+1, 1), hist (B, T, ny, nx, 1) -> (B, p)
+    float32. CUDA tensors launch the kernel (or raise); CPU tensors run
+    ``cronet_fused_plain``."""
+    if load_vol.device.type == "cpu":
+        return cronet_fused_plain(cfg, params, load_vol, hist)
+    args, out, keep = launch_args(cfg, params, load_vol, hist)
     lib, fn = _lib()
-    err = fn(code, lv.data_ptr(), hi.data_ptr(), c_ws,
-             S.data_ptr(), feats.data_ptr(), out.data_ptr(), c_dims,
-             *_build.device_stream(dev))
+    err = fn(*args)
     _build.check(lib, "cronet_fused", err)
     cronet_fused.launches += 1
     return out

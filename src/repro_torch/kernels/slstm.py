@@ -28,6 +28,11 @@ def slstm_plain(wx, r_zifo):
     return ref.slstm_sequential(wx, r_zifo)
 
 
+# slstm_forward's C signature
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p])
+
+
 def _check(wx, r_zifo, time_block, batch_tile):
     if wx.dim() != 3 or r_zifo.dim() != 3:
         raise ValueError(f"slstm_fused: wx {tuple(wx.shape)}, r_zifo "
@@ -57,6 +62,23 @@ def launch_plan(batch: int, nh: int, dh: int) -> Dict[str, int]:
                      "slices"), out))
 
 
+def launch_args(wx: torch.Tensor, r_zifo: torch.Tensor):
+    """``(args, out, keep)``: the arguments of ``slstm_forward`` for CUDA
+    inputs, the output they write, and the tensors that must outlive the
+    launch."""
+    b, s, _ = wx.shape
+    nh, dh, _ = r_zifo.shape
+    wx = wx.contiguous()
+    r = r_zifo.float().contiguous()
+    out = torch.empty((b, s, nh * dh), dtype=wx.dtype, device=wx.device)
+    hbuf = torch.empty((2, b, nh * dh), dtype=torch.float32,
+                       device=wx.device)
+    args = (_build.dtype_code(wx), wx.data_ptr(), r.data_ptr(),
+            out.data_ptr(), hbuf.data_ptr(), b, s, nh, dh,
+            *_build.device_stream(wx.device))
+    return args, out, (wx, r, hbuf)
+
+
 def slstm_fused(wx: torch.Tensor, r_zifo: torch.Tensor, *,
                 time_block: int = 256, batch_tile: int = 8) -> torch.Tensor:
     """wx: (B, S, 4d) precomputed input projections ([z|i|f|o] layout);
@@ -70,22 +92,12 @@ def slstm_fused(wx: torch.Tensor, r_zifo: torch.Tensor, *,
     if wx.device.type != "cuda" or r_zifo.device != wx.device:
         raise ValueError(f"slstm_fused: wx on {wx.device}, r_zifo on "
                          f"{r_zifo.device}")
-    b, s, _ = wx.shape
-    nh, dh, _ = r_zifo.shape
-    wx = wx.contiguous()
-    r = r_zifo.float().contiguous()
-    out = torch.empty((b, s, nh * dh), dtype=wx.dtype, device=wx.device)
+    args, out, keep = launch_args(wx, r_zifo)
     if out.numel() == 0:
         return out
-    hbuf = torch.empty((2, b, nh * dh), dtype=torch.float32,
-                       device=wx.device)
-    lib, fn = _build.function(
-        "slstm", "slstm_forward", ctypes.c_int,
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_void_p])
-    err = fn(_build.dtype_code(wx), wx.data_ptr(), r.data_ptr(),
-             out.data_ptr(), hbuf.data_ptr(), b, s, nh, dh,
-             *_build.device_stream(wx.device))
+    lib, fn = _build.function("slstm", "slstm_forward", ctypes.c_int,
+                              ARGTYPES)
+    err = fn(*args)
     _build.check(lib, "slstm", err)
     slstm_fused.launches += 1
     return out
