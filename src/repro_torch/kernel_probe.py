@@ -446,8 +446,9 @@ def probe_cronet(out_dir: Path):
                 if name == "timed":
                     continue
 
-                def call(lib=lib):
-                    err = lib.cronet_fused_forward(*args)
+                def call(lib=lib):     # on the capturing stream
+                    err = lib.cronet_fused_forward(
+                        *args[:-1], torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"kernel_probe: cronet error "
                                            f"{err} in {name}")
