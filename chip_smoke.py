@@ -9,8 +9,11 @@ Phases, one JSON line each on stdout:
      the plain versions run in full fp32.
   2. kernels — each kernel wrapper against its plain PyTorch version on the
      card, at the main path's shapes (CRONet medium, 4 slots): cronet_fused
-     at fp32 and bf16, solve_b_fused with a mix of need flags, an idle slot,
-     a warm start and a shape-padded (elem_mask) batch, bitwise equal to its
+     at fp32 and bf16 (also timed by graph replay at 1 and 4 slots; at most
+     three device kernels a call by torch.profiler, counted in a process of
+     its own, and the same bits over two calls, or the phase fails),
+     solve_b_fused with a mix of need flags, an idle slot, a warm start
+     and a shape-padded (elem_mask) batch, bitwise equal to its
      plain loop (U and iterations) in both; times of both, and the CG
      kernel's us per iteration of its longest slot.
   3. fusion — (a) each per-op kernel (conv2d, conv3d, gemm, maxpool2d,
@@ -25,8 +28,9 @@ Phases, one JSON line each on stdout:
      gemm call at every case (one launch, whatever K); (b)
      core.fusion.infer on the none / l1 / l2l3 paths at small, medium and
      large (fp32) against core.cronet.forward at 1e-4, with the median
-     latency of 30 synchronised calls and the launches per call; every
-     per-op kernel must be launched by (b).
+     latency of 30 synchronised calls, the launches per call and each
+     path's device time by graph replay (reported: whether l2l3 takes less
+     than l1); every per-op kernel must be launched by (b).
   4. breakdown — silu_lut and silu_exact against their plain versions at
      fp32 and bf16 on 2^14 elements, on CRONet medium's largest SiLU input at
      4 slots (768,000) and on 2^26 elements (a bandwidth reading), with the
@@ -46,7 +50,8 @@ Phases, one JSON line each on stdout:
      (B 8, S 4096, 4 heads of 512, fp32 wx) against ref.slstm_sequential,
      the error over the first and the last 64 steps; at the JAX package's
      init scale over 64 steps against the plain version in fp32 and
-     float64; and at the CPU tests' shapes.
+     float64; and at the CPU tests' shapes; its launch plan (blocks, the
+     blocks a head that a step waits for, shared bytes).
   6. serving — TopoServingEngine(device="cuda") on medium, 4 slots, serving
      8 requests of 20 iterations (the MBB case plus off-distribution point
      loads) once with error_threshold=0.1 and once with 1e9; cronet_fused
@@ -146,13 +151,14 @@ def phase_build(ctx):
 
 
 def phase_kernels(ctx):
+    import functools
     import numpy as np
     import torch
     from repro_torch.common import init_params
     from repro_torch.core.cronet import count_macs
     from repro_torch.fea import fea2d, hybrid
     from repro_torch.kernels import cg_fused, cronet_pipeline
-    from repro_torch.timing import cuda_ms
+    from repro_torch.timing import cuda_ms, graph_ms
     dev, cfg = ctx["device"], ctx["cfg"]
     B = 4
     gen = torch.Generator().manual_seed(0)
@@ -189,6 +195,23 @@ def phase_kernels(ctx):
     ok16_32 = bool(torch.allclose(out16, ref16_32, rtol=1e-4, atol=1e-4))
     k16_ms = cuda_ms(lambda: cronet_pipeline.cronet_fused(
         cfg, p16, lv16, hist16), reps=20)
+    # device time by graph replay at one and four slots, fp32 and bf16;
+    # the device kernels of a call (torch.profiler, at most 3); the same
+    # bits over two calls
+    graph = {}
+    for width in (1, 4):
+        for dname, pp, a, h in (("float32", p32, lv, hist),
+                                ("bfloat16", p16, lv16, hist16)):
+            graph[f"B{width}/{dname}"] = graph_ms(functools.partial(
+                cronet_pipeline.cronet_fused, cfg, pp, a[:width],
+                h[:width]), reps=20, replays=10)
+    per_call = cronet_kernels_per_call()
+    n_kernels = max(sum(v.values()) for v in per_call.values())
+    same_bits = bool(
+        torch.equal(out, cronet_pipeline.cronet_fused(cfg, p32, lv, hist))
+        and torch.equal(out16, cronet_pipeline.cronet_fused(
+            cfg, p16, lv16, hist16)))
+    ok_calls = 1 <= n_kernels <= 3 and same_bits
     flops = 2.0 * count_macs(cfg)["total"] * B
     nbytes = 4 * (lv.numel() + hist.numel() + B * cfg.p
                   + sum(v.numel() for part in p32.values()
@@ -197,8 +220,9 @@ def phase_kernels(ctx):
         name="cronet_fused", route="cuda",
         source="src/repro_torch/csrc/cronet_fused.cu",
         replaces="src/repro/kernels/cronet_pipeline.py:142",
-        max_abs_err=err32, ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms,
-        **bound(nbytes, flops, H100_FP32_FLOPS), library_ms=None)
+        max_abs_err=err32, ms=graph["B4/float32"], eager_ms=k_ms,
+        plain_ms=p_ms, **bound(nbytes, flops, H100_FP32_FLOPS),
+        library_ms=None)
     emit({"phase": "kernel", "name": "cronet_fused", "B": B,
           "fp32": {"max_abs_err": err32, "tol": "rtol=atol=1e-4",
                    "ok": ok32, "kernel_ms": k_ms, "plain_ms": p_ms,
@@ -208,6 +232,10 @@ def phase_kernels(ctx):
                    "max_abs_err_vs_fp32_on_bf16_values": err16_32,
                    "tol_vs_fp32": "rtol=atol=1e-4", "ok_fp32": ok16_32,
                    "kernel_ms": k16_ms},
+          "graph_ms": graph, "device_kernels_per_call": per_call,
+          "device_kernels_limit": 3, "same_bits_two_calls": same_bits,
+          "plan": {f"B{w}": cronet_pipeline.cronet_plan(cfg, w)._asdict()
+                   for w in (1, 4)},
           "library_ms": None})
 
     # -- solve_b_fused: need mix, an idle slot, a warm start; then elem_mask
@@ -277,6 +305,9 @@ def phase_kernels(ctx):
     ctx["rows"] = rows
     if not (ok32 and ok16 and ok16_32 and cg_ok):
         raise AssertionError("a kernel disagrees with its plain version")
+    if not ok_calls:
+        raise AssertionError(f"cronet_fused: {per_call} device kernels a "
+                             f"call (at most 3), same bits {same_bits}")
 
 
 def _valid_taps(n: int, k: int, causal: bool) -> int:
@@ -404,6 +435,23 @@ def fusion_call(name, args, dt, dev, gen):
 FUSION_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-1)}
 CONV_NAMES = ("conv2d", "conv3d")
 BF16_TIMED = CONV_NAMES + ("gemm",)     # per-op kernels timed in bf16 too
+
+
+def cronet_kernels_per_call() -> dict:
+    """The device kernels torch.profiler sees per cronet_fused call (medium,
+    B 1 and 4, fp32 and bf16), counted by kernel_probe --cronet-kernels in
+    a process of its own: a profile here would cost the fusion phase's gemm
+    profile kernel records (see kernel_probe.cronet_kernels_per_call)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.kernel_probe", "--cronet-kernels"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise RuntimeError(f"kernel_probe --cronet-kernels failed:\n"
+                           f"{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])[
+        "cronet_kernels_per_call"]
 
 
 def kernels_per_call(calls) -> dict:
@@ -592,7 +640,11 @@ def phase_fusion(ctx):
     # (after the counts are read: capture is not a run of the path)
     for key, fn in graphed.items():
         latency[key]["graph_device_ms"] = graph_ms(fn, reps=5)
-    emit({"phase": "fusion", "latency_ms": latency, "launches": counts})
+    below = {size: latency[f"l2l3/{size}"]["graph_device_ms"]
+             < latency[f"l1/{size}"]["graph_device_ms"]
+             for size in ("small", "medium", "large")}
+    emit({"phase": "fusion", "latency_ms": latency, "launches": counts,
+          "l2l3_below_l1_device_ms": below})
 
     for name, rep in per_kernel.items():
         src, replaces = FUSION_SOURCES[name]

@@ -1,6 +1,8 @@
-"""Where the GEMV's and the CG solve's device time goes, on one NVIDIA GPU.
+"""Where the device time of the GEMV, the CG solve, the CRONet megakernel
+and the fused sLSTM goes, on one NVIDIA GPU.
 
     PYTHONPATH=src python -m repro_torch.kernel_probe [--out FILE]
+        [--cronet] [--slstm] [--cronet-kernels] [--cg-wrapper-only]
 
 GEMV (csrc/gemm.cu): every GEMM of one CRONet medium ``l1`` forward, fp32
 and bf16, timed by CUDA-graph replay under gemm_plan's plan and under the
@@ -23,6 +25,15 @@ in-kernel setup and the write-out. A ``timed`` build counts the SM cycles
 of each phase of an iteration (clock64 in thread 0, barrier waits
 included) at 256, 512 and 1,024 threads. Beside them: a ``solve_b_fused`` call, eager and by graph replay, and the
 device kernels torch.profiler sees in it.
+
+cronet_fused (``--cronet``): the conv kernel alone, its trunk or branch
+tiles alone, its conv1 or conv2 products cut, the head alone and with each
+of its phases cut, at medium, B = 1 and 4, fp32 and bf16, by graph replay;
+a timed build counts the head's and two conv blocks' SM cycles by phase.
+``--cronet-kernels`` prints the device kernels torch.profiler sees per
+call (run in a process of its own). slstm_fused (``--slstm``) at
+xlstm-1.3b's widths with the flag wait, the h re-read, the dot products or
+the gate update cut, and the SM cycles of each phase of a step.
 
 Outputs of the cut builds are not results; only their times are read. The
 phases are cut by editing a copy of each source at fixed anchors: an anchor
@@ -107,83 +118,144 @@ _TIMER = ("#ifdef TIMED\n  long long t_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
           "t1 = clock64(); t_acc[k] += t1 - t0; t0 = t1; }\n#else\n"
           "#define MARK(k)\n#endif\n")
 
-# cronet_fused (csrc/cronet_fused.cu): the three kernels alone (the others'
-# launches cut), and the head with each of its phases cut; the timed build
-# counts the head's SM cycles by phase in thread 0 of each slot's block
-CRONET_PHASES = ("aap3d", "fc1", "fc2", "rnn", "bfc")
+# cronet_fused (csrc/cronet_fused.cu): the conv kernel alone (the head's
+# launch cut), its trunk or branch tiles alone, its conv1 or conv2 products
+# cut, the head alone, and the head with each of its phases cut (the AAP3D
+# feature loads, fc1, trunk fc2, the RNN, branch fc1 and fc2); the timed
+# build counts rank 0's SM cycles by phase in thread 0 of each slot's
+# cluster (features: the feature loads and the wait for the staged
+# weights), and in thread 0 of the first trunk and the last branch block
+# of slot 0 (g_conv_cycles, read by probe_conv_cycles)
+CRONET_PHASES = ("stage", "features", "fc1", "rnn_bfc1", "cluster_wait",
+                 "fc2")
 CRONET_HOOKS = [
-    ("#include <cuda_runtime.h>\n",
-     "#include <cuda_runtime.h>\n" + _cuts(
-         ("TRUNK", "BRANCH", "HEAD", "FC1", "FC2", "RNN", "BFC"))),
-    ("  trunk_kernel<T><<<", "  if (!CUT_TRUNK) trunk_kernel<T><<<"),
-    ("  branch_kernel<T><<<", "  if (!CUT_BRANCH) branch_kernel<T><<<"),
-    ("  head_kernel<T><<<", "  if (!CUT_HEAD) head_kernel<T><<<"),
-    ("  const int b = blockIdx.x, tid = threadIdx.x;\n",
-     "  const int b = blockIdx.x, tid = threadIdx.x;\n" + _TIMER),
-    ("  for (int i = tid; i < HID; i += blockDim.x) h[i] = 0.0f;\n"
+    ("#include <stdint.h>\n", "#include <stdint.h>\n#ifdef TIMED\n"
+     "__device__ long long g_conv_cycles[2][8];\n#endif\n" + _cuts(
+         ("CONV", "TRUNK", "BRANCH", "CONV1", "CONV2", "HEAD", "AAP", "FC1",
+          "FC2", "RNN", "BFC"))),
+    ("  const int tid = threadIdx.x;\n\n  // conv2's filter",
+     "  const int tid = threadIdx.x;\n#ifdef TIMED\n  long long ct[6];\n"
+     "  ct[0] = clock64();\n#define CMARK(k) ct[k] = clock64();\n#else\n"
+     "#define CMARK(k)\n#endif\n\n  // conv2's filter"),
+    ("    halo[i] = v;\n  }\n  __syncthreads();\n",
+     "    halo[i] = v;\n  }\n  __syncthreads();\n  CMARK(1)\n"),
+    ("    if (in) {\n", "    if (!CUT_CONV1 && in) {\n"),
+    ("w2r[u][e + 2], w2r[u][e + 3]);\n  }\n  __syncthreads();\n",
+     "w2r[u][e + 2], w2r[u][e + 3]);\n  }\n  __syncthreads();\n  CMARK(2)\n"),
+    ("  if (active) {\n    for (int ki = 0; ki < 3; ++ki) {",
+     "  if (!CUT_CONV2 && active) {\n    for (int ki = 0; ki < 3; ++ki) {"),
+    ("  __syncthreads();   // w2s is done: the SiLU'd tile goes there\n",
+     "  __syncthreads();   // w2s is done: the SiLU'd tile goes there\n"
+     "  CMARK(3)\n"),
+    ("        xch[(c * kRun + p) * kGroupThreads + rt] = acc[c][p];\n"
      "  __syncthreads();\n",
-     "  for (int i = tid; i < HID; i += blockDim.x) h[i] = 0.0f;\n"
-     "  __syncthreads();\n  MARK(0)\n"),
-    ("  if (tid < G1 * MID) {", "  if (!CUT_FC1 && tid < G1 * MID) {"),
+     "        xch[(c * kRun + p) * kGroupThreads + rt] = acc[c][p];\n"
+     "  __syncthreads();\n  CMARK(4)\n"),
+    ("      for (int c = 0; c < kChan; ++c) op[c] = acc[c][p];\n    }\n  }\n"
+     "  __syncthreads();\n}",
+     "      for (int c = 0; c < kChan; ++c) op[c] = acc[c][p];\n    }\n  }\n"
+     "  __syncthreads();\n  CMARK(5)\n"
+     "#ifdef TIMED\n  if (tid == 0 && blockIdx.y == 0 &&\n"
+     "      (int)blockIdx.x == (C2 == kTrunkC2 ? 0 : (int)gridDim.x - 1))\n"
+     "    for (int k = 0; k < 6; ++k)\n"
+     "      g_conv_cycles[C2 == kTrunkC2 ? 0 : 1][k] = ct[k] - ct[0];\n"
+     "#endif\n}"),
+    ("extern \"C\" const char* cronet_fused_error_string(int err) {",
+     "#ifdef TIMED\nextern \"C\" int probe_conv_cycles(long long* out) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, g_conv_cycles,\n"
+     "                                   sizeof(g_conv_cycles));\n}\n#endif\n"
+     "extern \"C\" const char* cronet_fused_error_string(int err) {"),
+    ("  conv_kernel<T><<<", "  if (!CUT_CONV) conv_kernel<T><<<"),
+    ("  err = cudaLaunchKernelEx(&cfg, head_kernel<T, V>,",
+     "  if (!CUT_HEAD) err = cudaLaunchKernelEx(&cfg, head_kernel<T, V>,"),
+    ("  if ((int)blockIdx.x < n_trunk) {",
+     "  if (CUT_TRUNK && (int)blockIdx.x < n_trunk) return;\n"
+     "  if (CUT_BRANCH && (int)blockIdx.x >= n_trunk) return;\n"
+     "  if ((int)blockIdx.x < n_trunk) {"),
+    ("  const int rank = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;\n",
+     "  const int rank = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;\n"
+     + _TIMER),
+    ("  __syncthreads();                     // the window table\n",
+     "  __syncthreads();                     // the window table\n"
+     "  MARK(0)\n"),
+    ("          v[u][a][y] = f < nk && a < e[1]",
+     "          v[u][a][y] = !CUT_AAP && f < nk && a < e[1]"),
+    ("  cp_async_wait_all();\n  __syncthreads();\n",
+     "  cp_async_wait_all();\n  __syncthreads();\n  MARK(1)\n"),
+    ("      gemv_lane<V>(fs, sw1", "      if (!CUT_FC1) gemv_lane<V>(fs, sw1"),
+    ("    cluster_arrive();                  // this rank's sums are written\n",
+     "    cluster_arrive();                  // this rank's sums are written\n"
+     "    MARK(2)\n"),
+    ("  for (int i = tid; i < Tn * kHid; i += kThreads) {",
+     "  for (int i = tid; i < (CUT_RNN ? 0 : Tn * kHid); i += kThreads) {"),
+    ("  for (int t = 0; t < Tn; ++t) {\n    const float* hc",
+     "  for (int t = 0; t < (CUT_RNN ? 0 : Tn); ++t) {\n    const float* hc"),
+    ("    for (int k = 0; k < kHid; ++k) s = fmaf(hf[k], w_bf1[k], s);",
+     "    for (int k = 0; k < (CUT_BFC ? 0 : kHid); ++k) s = fmaf(hf[k], "
+     "w_bf1[k], s);"),
+    ("  cluster_wait();                      // every rank's fc1 sums are here\n",
+     "  MARK(3)\n"
+     "  cluster_wait();                      // every rank's fc1 sums are here\n"),
     ("    tmid[tid] = silu(s);\n  }\n  __syncthreads();\n",
-     "    tmid[tid] = silu(s);\n  }\n  __syncthreads();\n  MARK(1)\n"),
-    ("  for (int n = tid; n < P; n += blockDim.x) {\n    float s = 0.0f;\n"
-     "    for (int k = 0; k < MID; ++k) s += tmid[k]",
-     "  for (int n = tid; n < (CUT_FC2 ? 0 : P); n += blockDim.x) {\n"
-     "    float s = 0.0f;\n    for (int k = 0; k < MID; ++k) s += tmid[k]"),
-    ("  // RNN: h = tanh(x_t @ Wx + h @ Wh), h0 = 0\n",
-     "  MARK(2)\n  // RNN: h = tanh(x_t @ Wx + h @ Wh), h0 = 0\n"),
-    ("  for (int t = 0; t < Tn; ++t) {\n    float hn = 0.0f;",
-     "  for (int t = 0; t < (CUT_RNN ? 0 : Tn); ++t) {\n    float hn = 0.0f;"),
-    ("  if (tid < MID) {\n    float s = 0.0f;\n"
-     "    for (int k = 0; k < HID; ++k)",
-     "  MARK(3)\n  if (!CUT_BFC && tid < MID) {\n    float s = 0.0f;\n"
-     "    for (int k = 0; k < HID; ++k)"),
-    ("    for (int k = 0; k < MID; ++k) s += bmid[k]",
-     "    for (int k = 0; k < (CUT_BFC ? 0 : MID); ++k) s += bmid[k]"),
-    ("    out[(size_t)b * P + n] = s * tout[n];\n  }\n}",
-     "    out[(size_t)b * P + n] = s * tout[n];\n  }\n  MARK(4)\n"
-     "#ifdef TIMED\n  __syncthreads();\n  if (tid == 0)\n"
-     "    for (int k = 0; k < 5; ++k) out[(size_t)b * P + k] = "
+     "    tmid[tid] = silu(s);\n  }\n  __syncthreads();\n  MARK(4)\n"),
+    ("      gemv_lane<V>(tmid, st2", "      if (!CUT_FC2) gemv_lane<V>(tmid, st2"),
+    ("      gemv_lane<V>(bmid, sb2", "      if (!CUT_BFC) gemv_lane<V>(bmid, sb2"),
+    ("      out[(size_t)b * P + c0 + i] = sb * st;\n    }\n  }\n}",
+     "      out[(size_t)b * P + c0 + i] = sb * st;\n    }\n  }\n  MARK(5)\n"
+     "#ifdef TIMED\n  __syncthreads();\n  if (rank == 0 && tid == 0)\n"
+     "    for (int k = 0; k < 6; ++k) out[(size_t)b * P + k] = "
      "(float)t_acc[k];\n#endif\n}"),
 ]
-CRONET_BUILDS = {"full": [], "trunk_only": ["NO_BRANCH", "NO_HEAD"],
-                 "branch_only": ["NO_TRUNK", "NO_HEAD"],
-                 "head_only": ["NO_TRUNK", "NO_BRANCH"],
-                 "no_fc1": ["NO_FC1"], "no_fc2": ["NO_FC2"],
-                 "no_rnn": ["NO_RNN"], "no_bfc": ["NO_BFC"],
+CONV_PHASES = ("stage", "conv1", "conv2", "exchange", "epilogue")
+CRONET_BUILDS = {"full": [], "conv_only": ["NO_HEAD"],
+                 "conv_no_conv1": ["NO_HEAD", "NO_CONV1"],
+                 "conv_no_conv2": ["NO_HEAD", "NO_CONV2"],
+                 "trunk_only": ["NO_HEAD", "NO_BRANCH"],
+                 "branch_only": ["NO_HEAD", "NO_TRUNK"],
+                 "head_only": ["NO_CONV"],
+                 "head_no_aap3d": ["NO_CONV", "NO_AAP"],
+                 "head_no_fc1": ["NO_CONV", "NO_FC1"],
+                 "head_no_fc2": ["NO_CONV", "NO_FC2"],
+                 "head_no_rnn": ["NO_CONV", "NO_RNN"],
+                 "head_no_bfc": ["NO_CONV", "NO_BFC"],
                  "timed": ["TIMED"]}
 
-# slstm_fused (csrc/slstm.cu): the step with the grid barrier, the h
+# slstm_fused (csrc/slstm.cu): the step with the head's flag wait, the h
 # re-read, the dot products or the gate update cut; the timed build counts
-# each phase's SM cycles a step in thread 0 of block 0
-SLSTM_PHASES = ("h_read", "dots", "gate", "barrier")
+# each phase's SM cycles a step in thread 0 of block 0 (gate: the slice
+# sums and the state update)
+SLSTM_PHASES = ("wait", "h_read", "dots", "gate")
 SLSTM_HOOKS = [
     ("namespace cg = cooperative_groups;\n",
      "namespace cg = cooperative_groups;\n"
      + _cuts(("BARRIER", "HREAD", "DOTS", "GATE"))),
     ("  for (int t = 0; t < S; ++t) {\n", _TIMER
      + "  for (int t = 0; t < S; ++t) {\n"),
-    ("    if (t > 0)\n      for (int idx = tid; idx < B * dh;",
-     "    if (t > 0 && !CUT_HREAD)\n      for (int idx = tid; idx < B * dh;"),
-    ("    if (own_wx) wx_own = ld(wx, ((size_t)wb * S + t) * 4 * d + wcol);\n"
-     "    __syncthreads();\n",
-     "    if (own_wx) wx_own = ld(wx, ((size_t)wb * S + t) * 4 * d + wcol);\n"
-     "    __syncthreads();\n    MARK(0)\n"),
-    ("    for (int b0 = 0; b0 < B; b0 += kBatchRegs) {",
-     "    for (int b0 = 0; b0 < (CUT_DOTS ? 0 : B); b0 += kBatchRegs) {"),
-    ("                            (size_t)(qq / U) * d + col0 + (qq % U));\n"
-     "    }\n    __syncthreads();\n",
-     "                            (size_t)(qq / U) * d + col0 + (qq % U));\n"
-     "    }\n    __syncthreads();\n    MARK(1)\n"),
-    ("      const float z = tanhf(pre[0]);\n",
-     "#if CUT_GATE\n      const float h = pre[0] + pre[1] + pre[2] + pre[3];\n"
-     "#else\n      const float z = tanhf(pre[0]);\n"),
+    ("          while (ld_acquire(f) < t) {",
+     "          while (!CUT_BARRIER && ld_acquire(f) < t) {"),
+    ("      __syncthreads();   // the acquires order every thread's reads of h\n",
+     "      __syncthreads();   // the acquires order every thread's reads of h\n"
+     "      MARK(0)\n"),
+    ("      if (vec_h) {", "      if (CUT_HREAD) {\n      } else if (vec_h) {"),
+    ("          hT[k * hs + b] = __ldcg(hprev + (size_t)b * d + k);\n"
+     "        }\n      }\n      __syncthreads();\n",
+     "          hT[k * hs + b] = __ldcg(hprev + (size_t)b * d + k);\n"
+     "        }\n      }\n      __syncthreads();\n      MARK(1)\n"),
+    ("    for (int b0 = 0; b0 < bpad; b0 += kTileB) {",
+     "    for (int b0 = 0; b0 < (CUT_DOTS ? 0 : bpad); b0 += kTileB) {"),
+    ("    __syncthreads();\n\n    // each (b, unit)",
+     "    __syncthreads();\n    MARK(2)\n\n    // each (b, unit)"),
+    ("      const float z = tanhf(pb[0]);\n",
+     "#if CUT_GATE\n      const float h = pb[0] + pb[1] + pb[2] + pb[3];"
+     "\n#else\n      const float z = tanhf(pb[0]);\n"),
     ("      ms[idx] = m_new;\n", "      ms[idx] = m_new;\n#endif\n"),
-    ("    if (t + 1 < S) grid.sync();  // h of step t visible to every block\n"
-     "  }\n}",
-     "    MARK(2)\n    if (!CUT_BARRIER && t + 1 < S) grid.sync();\n"
-     "    MARK(3)\n  }\n#ifdef TIMED\n  if (blockIdx.x == 0 && tid == 0)\n"
+    ("    if (t + 1 < S) {\n      __syncthreads();  // every h",
+     "    MARK(3)\n    if (t + 1 < S) {\n      __syncthreads();  // every h"),
+    ("        wxr[g] = own ? ld_now(wx_ptr(ob, ou, g, t + 1)) : 0.0f;\n"
+     "    }\n  }\n}",
+     "        wxr[g] = own ? ld_now(wx_ptr(ob, ou, g, t + 1)) : 0.0f;\n"
+     "    }\n"
+     "  }\n#ifdef TIMED\n  if (blockIdx.x == 0 && tid == 0)\n"
      "    for (int k = 0; k < 4; ++k) st(out, k, (float)t_acc[k] / S);\n"
      "#endif\n}"),
 ]
@@ -414,7 +486,9 @@ def probe_cg(out_dir: Path):
 
 def probe_cronet(out_dir: Path):
     """cronet_fused at medium, B = 1 and 4, fp32 and bf16: us by graph
-    replay of each build, and the timed build's head cycles by phase."""
+    replay of each build, and the timed build's head cycles by phase and
+    conv cycles by phase (the first trunk block and the last branch block
+    of slot 0)."""
     import torch
     from repro_torch.common import init_params
     from repro_torch.configs.cronet import get_cronet_config
@@ -459,7 +533,65 @@ def probe_cronet(out_dir: Path):
             torch.cuda.synchronize()
             cyc = out[:, :len(CRONET_PHASES)].double().cpu()
             row["head_cycles"] = dict(zip(CRONET_PHASES, cyc[0].tolist()))
+            conv = (ctypes.c_longlong * 16)()
+            fn = libs["timed"].probe_conv_cycles
+            fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p]
+            if fn(conv):
+                raise RuntimeError("kernel_probe: probe_conv_cycles failed")
+            for kind, off in (("trunk", 0), ("branch", 8)):
+                ends = list(conv[off:off + 6])
+                row[f"conv_cycles/{kind}"] = dict(zip(
+                    CONV_PHASES, [b_ - a_ for a_, b_ in zip(ends, ends[1:])]))
             report[f"B{B}/{dname}"] = row
+    return report
+
+
+def cronet_kernels_per_call(calls: int = 3):
+    """The device kernels torch.profiler sees per ``cronet_fused`` call at
+    medium, B = 1 and 4, fp32 and bf16, by kernel name. Run it in a process
+    of its own (``--cronet-kernels``): once a profile has run in a process,
+    each later cudaFuncSetAttribute (which some kernels' first launch
+    makes) costs a later profile a kernel record, so every configuration
+    is launched once before the first profile here."""
+    import collections
+    import re
+    import torch
+    from repro_torch.common import init_params
+    from repro_torch.configs.cronet import get_cronet_config
+    from repro_torch.fea import fea2d, hybrid
+    from repro_torch.kernels import cronet_pipeline
+    import chip_smoke
+    cfg = get_cronet_config("medium")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    p32 = hybrid.cast_params(init_params(cfg, seed=0, device=dev), "fp32")
+    lv = fea2d.load_volume_b(fea2d.stack_problems(
+        chip_smoke.problems(fea2d, cfg, 4), device=dev))
+    hist = torch.rand((4, cfg.hist_len, cfg.nely, cfg.nelx, 1),
+                      generator=gen).to(dev)
+    calls_of = {}
+    for B in (1, 4):
+        for dname, prec in (("float32", "fp32"), ("bfloat16", "bf16")):
+            dt, p = getattr(torch, dname), hybrid.cast_params(p32, prec)
+            calls_of[f"B{B}/{dname}"] = (
+                lambda p=p, a=lv[:B].to(dt), h=hist[:B].to(dt):
+                cronet_pipeline.cronet_fused(cfg, p, a, h))
+    for fn in calls_of.values():          # every first launch, first
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    report = {}
+    for key, fn in calls_of.items():
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = collections.Counter(
+            (re.search(r"(\w+_kernel)", e.name) or re.search(r"(\w+)", e.name)
+             ).group(1) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        report[key] = {n: c / calls for n, c in names.items()}
     return report
 
 
@@ -508,6 +640,8 @@ def main():
                     help="only cronet_fused, by kernel and by head phase")
     ap.add_argument("--slstm", action="store_true",
                     help="only slstm_fused, by phase of a step")
+    ap.add_argument("--cronet-kernels", action="store_true",
+                    help="only the device kernels of a cronet_fused call")
     args = ap.parse_args()
     import sys
     import torch
@@ -521,6 +655,9 @@ def main():
     out_dir = Path(args.build_dir)
     if args.cg_wrapper_only:
         text = json.dumps({"card": smi, "cg": probe_cg_wrapper()})
+    elif args.cronet_kernels:
+        text = json.dumps({"card": smi,
+                           "cronet_kernels_per_call": cronet_kernels_per_call()})
     elif args.cronet or args.slstm:
         rep = {"card": smi}
         if args.cronet:

@@ -9,6 +9,9 @@ inside the fixture, never at import). On a machine with one:
 Kernels build from src/repro_torch/csrc with nvcc at first use.
 """
 import dataclasses
+import json
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -78,6 +81,45 @@ def test_cronet_fused_bf16(dev):
         cfg, hybrid.cast_params(p16, "fp32"), lv.bfloat16().float(),
         hist.bfloat16().float())
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("size", ["small", "medium", "large"])
+def test_cronet_fused_bitwise_across_widths(dev, size, dtype):
+    """Slot b's output at widths 1, 2, 3, 4 and 8 is bitwise the same, and
+    so are two calls; within 1e-4 of fp32 arithmetic on the same values."""
+    cfg = get_cronet_config(size)
+    params = hybrid.cast_params(init_params(cfg, 0, device=dev), dtype)
+    _, lv, hist = _inputs(cfg, dev, B=8)
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    lv, hist = lv.to(dt), hist.to(dt)
+    out = cronet_pipeline.cronet_fused(cfg, params, lv, hist)
+    assert torch.equal(out, cronet_pipeline.cronet_fused(cfg, params, lv,
+                                                         hist))
+    for width in (1, 2, 3, 4):
+        assert torch.equal(cronet_pipeline.cronet_fused(
+            cfg, params, lv[:width], hist[:width]), out[:width]), width
+    ref = cronet_pipeline.cronet_fused_plain(
+        cfg, hybrid.cast_params(params, "fp32"), lv.float(), hist.float())
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_cronet_fused_is_at_most_three_kernels_per_call(dev):
+    """torch.profiler sees at most three device kernels per cronet_fused
+    call (two: conv_kernel and head_kernel) at medium, widths 1 and 4, fp32
+    and bf16. Counted in a process of its own (kernel_probe
+    --cronet-kernels): a profile in this process would cost the later gemm
+    profile kernel records (see kernel_probe.cronet_kernels_per_call)."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.kernel_probe", "--cronet-kernels"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    for case, names in report["cronet_kernels_per_call"].items():
+        assert set(names) == {"conv_kernel", "head_kernel"}, (case, names)
+        assert sum(names.values()) == 2.0, (case, names)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -507,6 +549,32 @@ def test_slstm_fused_matches_plain(dev, shape, tiling):
     before = slstm.slstm_fused.launches
     out = slstm.slstm_fused(wx, r, time_block=tiling[0], batch_tile=tiling[1])
     assert slstm.slstm_fused.launches == before + 1
+    torch.testing.assert_close(out, ref.slstm_sequential(wx, r), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("nh", [1, 2, 3, 4])
+def test_slstm_fused_bitwise_across_tilings_and_heads(dev, nh):
+    """time_block and batch_tile do not change a bit; the first rows of a
+    batch are bitwise the narrower batch's; each head's units are bitwise
+    that head run alone (a step waits only for its own head, and no sum
+    crosses heads); within 1e-4 of the plain version."""
+    b, s, dh = 4, 48, 64
+    gen = torch.Generator().manual_seed(nh)
+    wx = torch.randn((b, s, 4 * nh * dh), generator=gen).to(dev)
+    r = (torch.randn((nh, dh, 4 * dh), generator=gen) * dh ** -0.5).to(dev)
+    out = slstm.slstm_fused(wx, r)
+    for tb, bt in ((16, 2), (48, 1), (8, 4)):
+        assert torch.equal(slstm.slstm_fused(wx, r, time_block=tb,
+                                             batch_tile=bt), out)
+    assert torch.equal(slstm.slstm_fused(wx[:2].contiguous(), r), out[:2])
+    d = nh * dh
+    for h in range(nh):
+        cols = torch.cat([torch.arange(g * d + h * dh, g * d + (h + 1) * dh)
+                          for g in range(4)]).to(dev)
+        alone = slstm.slstm_fused(wx[..., cols].contiguous(),
+                                  r[h:h + 1].contiguous())
+        assert torch.equal(alone, out[..., h * dh:(h + 1) * dh]), h
     torch.testing.assert_close(out, ref.slstm_sequential(wx, r), rtol=0,
                                atol=1e-4)
 
