@@ -2,7 +2,8 @@
 and the fused sLSTM goes, on one NVIDIA GPU.
 
     PYTHONPATH=src python -m repro_torch.kernel_probe [--out FILE]
-        [--cronet] [--slstm] [--cronet-kernels] [--cg-wrapper-only]
+        [--cronet] [--slstm] [--flash-simt] [--maxpool] [--cronet-kernels]
+        [--cg-wrapper-only]
 
 GEMV (csrc/gemm.cu): every GEMM of one CRONet medium ``l1`` forward, fp32
 and bf16, timed by CUDA-graph replay under gemm_plan's plan and under the
@@ -33,7 +34,11 @@ a timed build counts the head's and two conv blocks' SM cycles by phase.
 ``--cronet-kernels`` prints the device kernels torch.profiler sees per
 call (run in a process of its own). slstm_fused (``--slstm``) at
 xlstm-1.3b's widths with the flag wait, the h re-read, the dot products or
-the gate update cut, and the SM cycles of each phase of a step.
+the gate update cut, and the SM cycles of each phase of a step. The SIMT
+flash kernel (``--flash-simt``) at qwen2.5-32b's widths in fp32, S 1024,
+non-causal and causal, with its K/V staging, score products, softmax or
+P.V products cut, and the SM cycles of each phase a kv tile.
+``--maxpool`` times maxpool2d through its wrapper by graph replay.
 
 Outputs of the cut builds are not results; only their times are read. The
 phases are cut by editing a copy of each source at fixed anchors: an anchor
@@ -263,6 +268,67 @@ SLSTM_BUILDS = {"full": [], "no_barrier": ["NO_BARRIER"],
                 "no_h_read": ["NO_HREAD"], "no_dots": ["NO_DOTS"],
                 "no_gate": ["NO_GATE"], "timed": ["TIMED"]}
 
+
+# the SIMT flash kernel (csrc/flash_attention.cu, flash_kernel): the K/V
+# staging, the score products, the softmax (its exponentials and row
+# reductions) or the P.V products cut; the timed build counts each phase's
+# SM cycles a kv tile in thread 0 of the block with the most tiles (q head
+# 0, batch 0; stage: the staging and its barriers), written over the first
+# values of that block's first output row with the tile count and a mark
+FLASH_PHASES = ("stage", "scores", "softmax", "pv")
+FLASH_HOOKS = [
+    ("#include <cstdint>\n", "#include <cstdint>\n"
+     + _cuts(("STAGE", "SCORES", "SOFTMAX", "PV"))),
+    ("  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;\n",
+     "  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;\n"
+     + _TIMER + "#ifdef TIMED\n  int n_tiles = 0;\n#endif\n"),
+    ("    for (int idx = tid; idx < kBK * D; idx += kThreads) {",
+     "    for (int idx = tid; idx < (CUT_STAGE ? 0 : kBK * D); "
+     "idx += kThreads) {"),
+    ("    for (int idx = tid; idx < kBK * Dv; idx += kThreads) {",
+     "    for (int idx = tid; idx < (CUT_STAGE ? 0 : kBK * Dv); "
+     "idx += kThreads) {"),
+    ("          kc < Sk ? ld(v, (((size_t)b * Sk + kc) * Hkv + hk) * Dv + d)"
+     " : 0.0f;\n    }\n    __syncthreads();\n",
+     "          kc < Sk ? ld(v, (((size_t)b * Sk + kc) * Hkv + hk) * Dv + d)"
+     " : 0.0f;\n    }\n    __syncthreads();\n    MARK(0)\n"),
+    ("    for (int d = 0; d < D; ++d) {\n      float qv[4], kv[4];",
+     "    for (int d = 0; d < (CUT_SCORES ? 0 : D); ++d) {\n"
+     "      float qv[4], kv[4];"),
+    ("        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];\n    }\n",
+     "        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];\n    }\n"
+     "    MARK(1)\n"),
+    ("      const float m_new = fmaxf(m[i], row_max(mx));\n"
+     "      const float alpha = expf(m[i] - m_new);",
+     "      const float m_new = fmaxf(m[i], CUT_SOFTMAX ? mx : row_max(mx));\n"
+     "      const float alpha = CUT_SOFTMAX ? 1.0f : expf(m[i] - m_new);"),
+    ("        const float p = kpos < Sk ? expf(s[i][j] - m_new) : 0.0f;",
+     "        const float p = CUT_SOFTMAX ? s[i][j]\n"
+     "                        : kpos < Sk ? expf(s[i][j] - m_new) : 0.0f;"),
+    ("      l[i] = l[i] * alpha + row_sum(sum);",
+     "      l[i] = l[i] * alpha + (CUT_SOFTMAX ? sum : row_sum(sum));"),
+    ("      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;\n    }\n"
+     "    __syncthreads();\n",
+     "      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;\n    }\n"
+     "    __syncthreads();\n    MARK(2)\n"),
+    ("    for (int c = 0; c < n_keys; ++c) {",
+     "    for (int c = 0; c < (CUT_PV ? 0 : n_keys); ++c) {"),
+    ("        for (int j = 0; j < NJ; ++j) acc[i][j] += pv[i] * vv[j];\n"
+     "    }\n  }\n",
+     "        for (int j = 0; j < NJ; ++j) acc[i][j] += pv[i] * vv[j];\n"
+     "    }\n    MARK(3)\n#ifdef TIMED\n    ++n_tiles;\n#endif\n  }\n"),
+    ("         acc[i][j] / inv);\n  }\n}",
+     "         acc[i][j] / inv);\n  }\n#ifdef TIMED\n  __syncthreads();\n"
+     "  if (tid == 0 && blockIdx.x == 0 && h == 0 && b == 0) {\n"
+     "    for (int k = 0; k < 4; ++k)\n"
+     "      st(out, (size_t)q0 * Hq * Dv + k, (float)t_acc[k] / n_tiles);\n"
+     "    st(out, (size_t)q0 * Hq * Dv + 4, (float)n_tiles);\n"
+     "    st(out, (size_t)q0 * Hq * Dv + 5, -12345.0f);\n  }\n"
+     "#endif\n}"),
+]
+FLASH_BUILDS = {"full": [], "no_stage": ["NO_STAGE"],
+                "no_scores": ["NO_SCORES"], "no_softmax": ["NO_SOFTMAX"],
+                "no_pv": ["NO_PV"], "timed": ["TIMED"]}
 
 def _edit(src: str, hooks, name: str) -> str:
     for anchor, repl in hooks:
@@ -630,6 +696,77 @@ def probe_slstm(out_dir: Path):
     return report
 
 
+def probe_flash_simt(out_dir: Path):
+    """The SIMT flash kernel at qwen2.5-32b's widths (B 1, S 1024, 40 q on
+    8 kv heads, D 128, fp32), non-causal and causal: ms by CUDA events of
+    each build, and the timed build's SM cycles a kv tile by phase."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.timing import cuda_ms
+    libs = build(out_dir, "flash_attention", FLASH_HOOKS, FLASH_BUILDS, [])
+    for lib in libs.values():
+        lib.flash_attention_forward.argtypes = fa.SIMT_ARGTYPES
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, S, hq, hkv, d = 1, 1024, 40, 8, 128
+    q = torch.randn((B, S, hq, d), generator=gen, device=dev)
+    k = torch.randn((B, S, hkv, d), generator=gen, device=dev)
+    v = torch.randn((B, S, hkv, d), generator=gen, device=dev)
+    report = {"shape": [B, S, hq, hkv, d], "dtype": "float32"}
+    for causal in (False, True):
+        kernel, args, out, keep = fa.launch_args(q, k, v, causal)
+        if kernel != "simt":
+            raise RuntimeError("kernel_probe: the case must run the SIMT "
+                               "kernel")
+        row = {}
+        for name, lib in libs.items():
+            def call(lib=lib):
+                err = lib.flash_attention_forward(*args)
+                if err:
+                    raise RuntimeError(f"kernel_probe: flash error {err} "
+                                       f"in {name}")
+            ms = cuda_ms(call, reps=5)
+            if name == "timed":
+                torch.cuda.synchronize()
+                # the block with the most tiles writes its cycles over the
+                # first values of its first row, and a mark after them
+                first = out[0].reshape(S, -1)
+                rows = (first[:, 5] == -12345.0).nonzero().flatten()
+                vals = first[rows[0]].double().cpu()
+                row["tiles_of_timed_block"] = int(vals[4])
+                row["cycles_per_tile"] = dict(zip(FLASH_PHASES,
+                                                  vals[:4].tolist()))
+                row["timed_ms"] = ms
+            else:
+                row[f"{name}_ms"] = ms
+        report["causal" if causal else "noncausal"] = row
+    return report
+
+
+def probe_maxpool():
+    """maxpool2d at CRONet medium's branch shape (10, 20, 30, 32) and its
+    trunk-sized neighbours, fp32 and bf16: us by graph replay through the
+    public wrapper (so any tree's port can be timed: run this file by path
+    with that tree's src first on PYTHONPATH), beside F.max_pool2d."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import pool
+    from repro_torch.timing import graph_ms
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    report = {}
+    for shape in ((10, 20, 30, 32), (4, 21, 31, 64), (3, 7, 9, 8)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device=dev).to(dt)
+            xc = x.permute(0, 3, 1, 2)
+            report[f"{'x'.join(map(str, shape))}/{str(dt).split('.')[-1]}"] = {
+                "kernel_us": 1e3 * graph_ms(lambda: pool.maxpool2d(x, 2),
+                                            reps=50, replays=10),
+                "f_max_pool2d_us": 1e3 * graph_ms(
+                    lambda: F.max_pool2d(xc, 2), reps=50, replays=10)}
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -640,6 +777,10 @@ def main():
                     help="only cronet_fused, by kernel and by head phase")
     ap.add_argument("--slstm", action="store_true",
                     help="only slstm_fused, by phase of a step")
+    ap.add_argument("--maxpool", action="store_true",
+                    help="only maxpool2d by graph replay (any tree's port)")
+    ap.add_argument("--flash-simt", action="store_true",
+                    help="only the SIMT flash kernel, by phase of a tile")
     ap.add_argument("--cronet-kernels", action="store_true",
                     help="only the device kernels of a cronet_fused call")
     args = ap.parse_args()
@@ -658,12 +799,16 @@ def main():
     elif args.cronet_kernels:
         text = json.dumps({"card": smi,
                            "cronet_kernels_per_call": cronet_kernels_per_call()})
-    elif args.cronet or args.slstm:
+    elif args.cronet or args.slstm or args.flash_simt or args.maxpool:
         rep = {"card": smi}
         if args.cronet:
             rep["cronet"] = probe_cronet(out_dir)
         if args.slstm:
             rep["slstm"] = probe_slstm(out_dir)
+        if args.flash_simt:
+            rep["flash_simt"] = probe_flash_simt(out_dir)
+        if args.maxpool:
+            rep["maxpool"] = probe_maxpool()
         text = json.dumps(rep)
     else:
         text = json.dumps({"card": smi, "gemm": probe_gemm(out_dir),

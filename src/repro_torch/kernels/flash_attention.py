@@ -72,43 +72,62 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(q, k, v, causal: bool):
-    """One launch of the kernel ``kernel_for`` picks, over all q heads;
-    counts it on ``flash_attention``."""
+_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+SIMT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + _TAIL
+TC_ARGTYPES = [ctypes.c_void_p] * 5 + _TAIL
+
+
+def _check_launch(q, k, v):
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: q, k, v dtypes {q.dtype}, "
                         f"{k.dtype}, {v.dtype} differ")
-    b, sq, hq, d = q.shape
-    _, sk, hkv, dv = v.shape
+    d, dv = q.shape[3], v.shape[3]
     if not 1 <= d <= 128 or dv not in (16, 32, 64, 128):
         raise ValueError(f"flash_attention: the kernel takes head widths "
                          f"D <= 128 and Dv in (16, 32, 64, 128), got D {d}, "
                          f"Dv {dv}")
+
+
+def launch_args(q, k, v, causal: bool):
+    """``(kernel, args, out, keep)`` for CUDA q, k, v: the kernel
+    ``kernel_for`` picks, the arguments of its C entry point
+    (``flash_attention_tc_forward`` with ``TC_ARGTYPES`` or
+    ``flash_attention_forward`` with ``SIMT_ARGTYPES``), the output they
+    write and the tensors that must outlive the launch."""
+    _check_launch(q, k, v)
+    b, sq, hq, d = q.shape
+    _, sk, hkv, dv = v.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    dims = (ctypes.c_int * 7)(b, sq, sk, hq, hkv, d, dv)
-    tail = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    args = (out.data_ptr(), dims, int(causal), 1.0 / math.sqrt(d),
-            *_build.device_stream(q.device))
     kernel = kernel_for(q.dtype, d, dv)
     if kernel == "tc":
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
-        lib, fn = _build.function(
-            "flash_attention", "flash_attention_tc_forward", ctypes.c_int,
-            [ctypes.c_void_p] * 5 + tail)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *args)
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
+    dims = (ctypes.c_int * 7)(b, sq, sk, hq, hkv, d, dv)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dims,
+            int(causal), 1.0 / math.sqrt(d), *_build.device_stream(q.device))
+    if kernel == "simt":
+        args = (_build.dtype_code(q), *args)
+    return kernel, args, out, (q, k, v, dims)
+
+
+def _launch(q, k, v, causal: bool):
+    """One launch of the kernel ``kernel_for`` picks, over all q heads;
+    counts it on ``flash_attention``."""
+    kernel, args, out, keep = launch_args(q, k, v, causal)
+    if out.numel() == 0:
+        return out
+    if kernel == "tc":
+        lib, fn = _build.function("flash_attention",
+                                  "flash_attention_tc_forward", ctypes.c_int,
+                                  TC_ARGTYPES)
     else:
-        lib, fn = _build.function(
-            "flash_attention", "flash_attention_forward", ctypes.c_int,
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + tail)
-        err = fn(_build.dtype_code(q), q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), *args)
-    _build.check(lib, "flash_attention", err)
+        lib, fn = _build.function("flash_attention",
+                                  "flash_attention_forward", ctypes.c_int,
+                                  SIMT_ARGTYPES)
+    _build.check(lib, "flash_attention", fn(*args))
     flash_attention.launches += 1
     if kernel == "tc":
         flash_attention.tc_launches += 1
