@@ -19,7 +19,8 @@ Phases, one JSON line each on stdout:
   3. fusion — (a) each per-op kernel (conv2d, conv3d, gemm, maxpool2d,
      adaptive_avg_pool2d/3d) against its plain version at CRONet medium's
      layer shapes and at odd shapes, fp32 and bf16 (the adaptive pools, the
-     convolutions and gemm also bitwise equal over two calls), timed beside
+     convolutions and gemm also bitwise equal over two calls, maxpool2d
+     bitwise equal to its plain version), timed beside
      its plain version and the one PyTorch call for the same function (the
      convolutions and gemm in bf16 too, beside F.conv2d/F.conv3d and
      torch.matmul in bf16, each case printed); every bf16 convolution call
@@ -45,8 +46,10 @@ Phases, one JSON line each on stdout:
      (bf16 also element by element, a test that a dropped key tile and a
      wrong kv head are shown to fail), again at fp32 with S 1024 (the SIMT
      kernel), at the CPU tests' shapes and at a ragged bf16 S 200, timed
-     beside F.scaled_dot_product_attention; flash's build seconds and ptxas
-     report; (b) slstm_fused at xlstm-1.3b's widths
+     beside F.scaled_dot_product_attention; the SIMT kernel at
+     hubert-xlarge's (80), recurrentgemma-2b's (256) and deepseek-v3's MLA
+     (D 192, Dv 128) widths, fp32 at S 1024 (timed beside SDPA) and bf16
+     at S 512; flash's build seconds and ptxas report; (b) slstm_fused at xlstm-1.3b's widths
      (B 8, S 4096, 4 heads of 512, fp32 wx) against ref.slstm_sequential,
      the error over the first and the last 64 steps; at the JAX package's
      init scale over 64 steps against the plain version in fp32 and
@@ -553,6 +556,8 @@ def phase_fusion(ctx):
                         out.float(), ref.float(), rtol=rtol, atol=atol))
                     if name.startswith(("adaptive", "conv", "gemm")):
                         ok = ok and bool(torch.equal(out, kern(fs)))  # order
+                    if name == "maxpool2d":     # an input's bits, exactly
+                        ok = ok and bool(torch.equal(out, ref))
                     errs.append(float((out.float() - ref.float())
                                       .abs().max()))
                 ok_all = ok_all and ok
@@ -798,6 +803,12 @@ def sdpa(q, k, v, causal):
 # wrong kv head moves it by far more, and the full-width run checks that
 # those two stand-ins fail the same test.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# (q heads, kv heads, D, Dv) of the other LM configurations' attention:
+# hubert-xlarge, recurrentgemma-2b (its local attention as global: the
+# kernel has no window), deepseek-v3's MLA with 16 of its 128 heads
+SIMT_WIDTHS = {"hubert_xlarge_d80": (16, 16, 80, 80),
+               "recurrentgemma_2b_d256": (10, 1, 256, 256),
+               "deepseek_v3_mla_d192_dv128": (16, 16, 192, 128)}
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 2e-3
 SLSTM_TOL = 1e-4
 
@@ -948,6 +959,34 @@ def phase_lm_kernels(ctx):
     ragged = qkv(1, 200, 200, 10, 2, 128, bf16)
     for c in (False, True):
         check("tc_ragged_200", *ragged, c, chunk=40)
+    # the SIMT kernel at the other configurations' attention widths, fp32
+    # at S 1024 (also timed beside SDPA) and bf16 at S 512 (against the
+    # reference's online-softmax path in the kernel's 32-key tiles); each
+    # call must launch the SIMT kernel
+    widths = {}
+    for label, (hq_, hkv_, d_, dv_) in SIMT_WIDTHS.items():
+        for dt, s_ in ((f32, 1024), (bf16, 512)):
+            qw = randn((1, s_, hq_, d_), dt)
+            kw = randn((1, s_, hkv_, d_), dt)
+            vw = randn((1, s_, hkv_, dv_), dt)
+            dname = str(dt).split(".")[-1]
+            for c in (False, True):
+                before = flash_attention.simt_launches
+                check(label, qw, kw, vw, c,
+                      chunk=32 if dt == bf16 else 1024)
+                if flash_attention.simt_launches != before + 1:
+                    raise AssertionError(f"{label} {dname}: not one launch "
+                                         f"of the SIMT kernel")
+                if dt == f32:
+                    key = f"{label}/{'causal' if c else 'noncausal'}/{dname}"
+                    fl[key].update(
+                        ms=cuda_ms(lambda: flash(qw, kw, vw, c), reps=3),
+                        library_ms=cuda_ms(lambda: sdpa(qw, kw, vw, c),
+                                           reps=3))
+                    widths[key] = {k_: fl[key][k_]
+                                   for k_ in ("ms", "library_ms")}
+            del qw, kw, vw
+    fl["simt_widths_fp32_S1024_ms"] = widths
 
     # tensor-core kernel at bf16 S 4096, SIMT kernel at fp32 S 1024, each
     # summed over its non-causal and causal call

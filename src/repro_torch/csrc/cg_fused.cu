@@ -370,16 +370,33 @@ cg_solve_kernel(const float* __restrict__ X, const float* __restrict__ mask,
   if (tid == 0) its_out[b] = its;
 }
 
+constexpr int kMaxSmem = 232448;     // dynamic shared bytes a block may have
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` take up to kMaxSmem of dynamic shared memory on `device`,
+// once per kernel and device: a cudaFuncSetAttribute per call costs host
+// time and, once torch.profiler has run in the process, a kernel record of
+// a later profile.
+template <typename K>
+cudaError_t allow_smem(K kernel, int device, bool (&done)[kMaxDevices]) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
+}
+
 template <int NPT, int W>
-cudaError_t launch(size_t smem, int B, cudaStream_t stream, const float* X,
+cudaError_t launch(size_t smem, int B, int device, cudaStream_t stream,
+                   const float* X,
                    const float* mask, const float* f, const float* free_mask,
                    const KE64& KE, const float* need, const float* U0,
                    float* Uout, int* its_out, int nelx, int nely, int pn,
                    float e_min, float one_minus_e_min, float tol,
                    int max_iter) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cg_solve_kernel<NPT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static bool ok[kMaxDevices];
+  const cudaError_t err = allow_smem(cg_solve_kernel<NPT, W>, device, ok);
   if (err != cudaSuccess) return err;
   cg_solve_kernel<NPT, W><<<B, 32 * W, smem, stream>>>(
       X, mask, f, free_mask, KE, need, U0, Uout, its_out, nelx, nely, pn,
@@ -425,7 +442,8 @@ extern "C" int cg_fused_solve(const float* X, const float* mask, const float* f,
   // sizes at 1,024 nodes that kernel_probe times
 #define CG_CASE(N, T)                                                     \
   if (npt == N && threads == T)                                           \
-    return (int)launch<N, T / 32>(smem, B, s, X, mask, f, free_mask, KE,  \
+    return (int)launch<N, T / 32>(smem, B, device, s, X, mask, f,       \
+                                  free_mask, KE,                          \
                                   need, U0, Uout, its_out, nelx, nely, pn, \
                                   e_min, one_minus_e_min, tol, max_iter);
   CG_CASE(1, 32) CG_CASE(2, 32) CG_CASE(4, 32) CG_CASE(4, 64)

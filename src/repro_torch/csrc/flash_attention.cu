@@ -22,24 +22,36 @@
 // skipping changes nothing. Causal q tiles are scheduled longest first.
 //
 // What bounds both on the H100: operations, 4*B*Hq*Sq*Sk*D flops (half of
-// them causal), ~0.35 ms at qwen2.5-32b's prefill widths (S 4096, bf16) on
-// the tensor cores.
+// them causal): ~0.35 ms at qwen2.5-32b's prefill widths (S 4096, bf16) on
+// the tensor cores, 0.32 ms at S 1024 in fp32 on the CUDA cores.
 //
-// SIMT kernel (fp32, and bf16 at other widths): 256 threads own 64 q rows;
-// per 64-key tile:
-//   1. K and V tiles are staged in shared memory as fp32 (Q stays there for
-//      the whole walk; rows padded by one float so that the column reads of
-//      the score loop hit 16 distinct banks);
-//   2. each thread computes a 4 x 4 block of scores (rows ty*4+i, keys
-//      tx+16j), as the fp32 dot times 1/sqrt(D);
-//   3. the row max and sum are reduced over the 16 lanes that share a row
-//      (warp shuffles); running max m, denominator l and the accumulator
-//      rescale by alpha = exp(m_old - m_new);
-//   4. p goes through shared memory, and each thread adds its 4 rows x
-//      Dv/16 columns of P V.
-// Every multiply-add runs on the fp32 pipes from shared memory (one shared
-// load for every two FMAs in the score loop), far from the tensor-core
-// bound; fp32's 2e-5 tolerance rules out TF32.
+// SIMT kernel (fp32, and bf16 at the other widths: D a multiple of 16 up
+// to 256, Dv in {16, 32, 64, 80, 128, 256}). fp32 arithmetic on the CUDA
+// cores throughout (fp32's 2e-5 bar rules out TF32). 128 threads: 16 row
+// groups x 8 lanes; thread (ty, tx) owns q rows ty + 16 r (r < TR; TR = 4
+// for Dv <= 128, else 2, so a block owns 64 or 32 rows), the keys
+// tx + 8 i (i < 4) of each 32-key tile, and the output columns
+// VW (tx + 8 j) .. + VW - 1 (VW = 4 when 32 divides Dv, else 2). A row's
+// 8 lanes are 8 neighbouring lanes of one warp. Per kv tile:
+//   1. K and V tiles arrive by cp.async (16-byte copies, keys past Sk
+//      zero-filled) in their own dtype: V of tile t is requested as the
+//      tile starts and lands while the scores are computed, K of tile t+1
+//      as soon as every thread is done with K of tile t, so it lands while
+//      the softmax and P.V run. Q is staged once, as fp32.
+//   2. Scores: per 4 values of d, one 16-byte load for each of the TR q
+//      rows and one for each of the 4 keys, then 16 TR multiply-adds
+//      (8 or 5.3 per shared load). Q and K rows are padded by 16 bytes, so
+//      the 4 row groups and the 8 keys a warp reads are conflict-free.
+//   3. Softmax, branch-free: row max over the 8 lanes (3 shuffles), p =
+//      2^(s c - m c) and alpha = 2^((m_old - m_new) c) with c = scale *
+//      log2(e) folded in (scores stay unscaled; masked ones are -1e30 in
+//      those units, which gives the reference's p); each lane keeps its own
+//      share of l, and the lanes add them at the end. p goes to shared
+//      memory transposed (P^T[key][row]), one vector store a key.
+//   4. P.V: per key one load of the thread's TR p values and Dv / (8 VW)
+//      loads of V, then TR Dv / 8 multiply-adds (12.8 per load at Dv 128).
+// Three barriers a tile; the shared memory plan (flash_attention.py
+// simt_plan) fits 3 blocks an SM at D 128 fp32 (74 KB each) and 2 at D 256.
 //
 // Tensor-core kernel (bf16, D == Dv in {64, 128}): 384 threads own 128 q
 // rows. Warpgroup 0 is the producer: one thread loads Q once and keeps a
@@ -70,195 +82,415 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // keys per kv tile
-constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSmem = 232448;     // dynamic shared bytes a block may have
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
+// Lets `kernel` take `bytes` of dynamic shared memory on `device` (its
+// static shared memory and `bytes` together at most kMaxSmem), once per
+// kernel and device: a cudaFuncSetAttribute per call costs host time and,
+// once torch.profiler has run in the process, a kernel record of a later
+// profile.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, int device,
+                       bool (&done)[kMaxDevices]) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
 }
-__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16(v);
+
+namespace simt {
+
+constexpr int kThreads = 128;   // 16 row groups x 8 lanes
+constexpr int kLanes = 8;       // lanes that share a row group
+constexpr int kKT = 4;          // keys a thread scores per tile
+constexpr int kBK = kLanes * kKT;   // keys per kv tile
+constexpr int kPad = 16;        // bytes past each Q, K and P^T row
+constexpr int kMinBlocks = 3;   // blocks an SM that the registers allow
+
+// The plan flash_attention.py's simt_plan computes: rows per thread, rows
+// per block, keys per tile, threads, dynamic shared bytes.
+struct Plan {
+  int tr, rows, keys, threads, smem;
+};
+
+// Shared memory of a block: Q fp32 [rows][D + 4], K [kBK][D + 16 / es] and
+// V [kBK][Dv] in the inputs' dtype (es bytes), P^T fp32 [kBK][rows + 4].
+struct Layout {
+  int q_stride, k_stride, p_stride;        // in elements
+  int q_off, k_off, v_off, p_off, bytes;   // in bytes
+};
+
+Layout layout(int D, int Dv, int rows, int es) {
+  Layout L;
+  L.q_stride = D + kPad / 4;
+  L.k_stride = D + kPad / es;
+  L.p_stride = rows + kPad / 4;
+  L.q_off = 0;
+  L.k_off = L.q_off + rows * L.q_stride * 4;
+  L.v_off = L.k_off + kBK * L.k_stride * es;
+  L.p_off = L.v_off + kBK * Dv * es;
+  L.bytes = L.p_off + kBK * L.p_stride * 4;
+  return L;
 }
+
+bool plan_ok(const Plan& p, int D, int Dv, int es) {
+  const int tr = Dv <= 128 ? 4 : 2;
+  return D % 16 == 0 && D >= 16 && D <= 256 && p.tr == tr &&
+         p.rows == 16 * tr && p.keys == kBK && p.threads == kThreads &&
+         p.smem == layout(D, Dv, p.rows, es).bytes && p.smem <= kMaxSmem;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronously; a row that is not valid is
+// zero-filled (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// N consecutive values from shared memory as fp32 (N = 2 or 4)
+template <int N>
+__device__ __forceinline__ void load(const float* p, float* o) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x; o[1] = v.y;
+  }
+}
+__device__ __forceinline__ float lo_bf16(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+template <int N>
+__device__ __forceinline__ void load(const __nv_bfloat16* p, float* o) {
+  if constexpr (N == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    o[0] = lo_bf16(v.x); o[1] = hi_bf16(v.x);
+    o[2] = lo_bf16(v.y); o[3] = hi_bf16(v.y);
+  } else {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    o[0] = lo_bf16(v); o[1] = hi_bf16(v);
+  }
+}
+
+// N values to global memory in the output's dtype
+template <int N>
+__device__ __forceinline__ void store(float* p, const float* v) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <int N>
+__device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
+  if constexpr (N == 4)
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(v[0], v[1]);
+}
+
+// 16 bytes of q (4 fp32 or 8 bf16 values) to fp32 in shared memory
+__device__ __forceinline__ void q_chunk(float* dst, const float* src,
+                                        bool valid) {
+  const float4 v = valid ? __ldg(reinterpret_cast<const float4*>(src))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void q_chunk(float* dst, const __nv_bfloat16* src,
+                                        bool valid) {
+  const uint4 v = valid ? __ldg(reinterpret_cast<const uint4*>(src))
+                        : make_uint4(0u, 0u, 0u, 0u);
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(lo_bf16(v.x), hi_bf16(v.x), lo_bf16(v.y), hi_bf16(v.y));
+  *reinterpret_cast<float4*>(dst + 4) =
+      make_float4(lo_bf16(v.z), hi_bf16(v.z), lo_bf16(v.w), hi_bf16(v.w));
+}
+
 // p rounded to the value type, as the reference's p.astype(v.dtype)
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-__device__ __forceinline__ float row_max(float v) {
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// A thread's walk over the 16-byte chunks of a tile of `rows` rows of
+// `cpr` chunks each, 128 threads apart: its first chunk, and the step, as
+// (row, chunk) pairs (no division per chunk).
+struct Walk {
+  int r0, c0, dr, dc, cpr;
+  __device__ Walk(int tid, int cpr_) : cpr(cpr_) {
+    r0 = tid / cpr;
+    c0 = tid - r0 * cpr;
+    dr = kThreads / cpr;
+    dc = kThreads - dr * cpr;
+  }
+  __device__ __forceinline__ void next(int& r, int& c) const {
+    c += dc;
+    r += dr;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+};
+
+// cp.async of kBK rows (keys k0 ..) of a (B, Sk, Hkv, width) tensor's kv
+// head into shared rows `stride` elements apart; keys past Sk read 0
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, int stride, const T* src,
+                                      size_t row_step, int k0, int Sk,
+                                      const Walk& w) {
+  constexpr int E = 16 / sizeof(T);
+  for (int r = w.r0, c = w.c0; r < kBK; w.next(r, c)) {
+    const bool valid = k0 + r < Sk;
+    const T* g = src + (valid ? (size_t)(k0 + r) * row_step : 0) + c * E;
+    cp_async16(dst + r * stride + c * E, g, valid);
+  }
 }
 
-size_t smem_bytes(int D, int Dv) {
-  return sizeof(float) * ((size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) +
-                          (size_t)kBK * Dv + (size_t)kBQ * (kBK + 1));
-}
-
-// NJ = Dv / 16 accumulator columns per thread.
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int TR, int DV>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-             int Hq, int Hkv, int D, int causal, float scale) {
-  constexpr int Dv = NJ * 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                       // [kBQ][D + 1]
-  float* Ks = Qs + kBQ * (D + 1);         // [kBK][D + 1]
-  float* Vs = Ks + kBK * (D + 1);         // [kBK][Dv]
-  float* Ps = Vs + kBK * Dv;              // [kBQ][kBK + 1]
+             int Hq, int Hkv, int D, int causal, float scale, Layout L) {
+  constexpr int kRows = 16 * TR;
+  constexpr int VW = DV % 32 == 0 ? 4 : 2;   // output columns a vector
+  constexpr int NV = DV / (kLanes * VW);     // vectors a thread
+  constexpr int E = 16 / sizeof(T);
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* Qs = reinterpret_cast<float*>(smem + L.q_off);
+  T* Ks = reinterpret_cast<T*>(smem + L.k_off);
+  T* Vs = reinterpret_cast<T*>(smem + L.v_off);
+  float* Ps = reinterpret_cast<float*>(smem + L.p_off);
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int n_qt = (Sq + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBQ;  // longest first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / kLanes, tx = tid % kLanes;
+  const int n_qt = gridDim.y;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * kRows;  // longest first
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
   const int hk = h / (Hq / Hkv);
+  const int k_end = causal ? min(Sk, q0 + kRows) : Sk;  // later tiles masked
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+  const float c = scale * kLog2e;
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int qr = q0 + r;
-    Qs[r * (D + 1) + d] =
-        qr < Sq ? ld(q, (((size_t)b * Sq + qr) * Hq + h) * D + d) : 0.0f;
+  const size_t k_step = (size_t)Hkv * D, v_step = (size_t)Hkv * DV;
+  const T* kb = k + ((size_t)b * Sk * Hkv + hk) * D;
+  const T* vb = v + ((size_t)b * Sk * Hkv + hk) * DV;
+  const Walk wk(tid, D / E), wv(tid, DV / E);
+
+  // Q once, as fp32; then K of the first tile
+  {
+    const Walk wq(tid, D / E);
+    const T* qb = q + ((size_t)b * Sq * Hq + h) * D;
+    for (int r = wq.r0, cc = wq.c0; r < kRows; wq.next(r, cc)) {
+      const bool valid = q0 + r < Sq;
+      q_chunk(Qs + r * L.q_stride + cc * E,
+              qb + (valid ? (size_t)(q0 + r) * Hq * D : 0) + cc * E, valid);
+    }
+  }
+  stage(Ks, L.k_stride, kb, k_step, 0, Sk, wk);
+  cp_async_commit();
+
+  float m[TR], l[TR], acc[TR][NV * VW];
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV * VW; ++j) acc[r][j] = 0.0f;
   }
 
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    cp_async_wait<0>();   // this thread's copies of K (tile t) are in
+    __syncthreads();      // everyone's are; P.V of tile t-1 is done
+    stage(Vs, DV, vb, v_step, k0, Sk, wv);
+    cp_async_commit();
 
-  int k_end = Sk;
-  if (causal) k_end = min(Sk, q0 + kBQ);  // later tiles are wholly masked
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's Ks / Vs / Ps are consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int c = idx / D, d = idx - c * D;
-      const int kc = k0 + c;
-      Ks[c * (D + 1) + d] =
-          kc < Sk ? ld(k, (((size_t)b * Sk + kc) * Hkv + hk) * D + d) : 0.0f;
-    }
-    for (int idx = tid; idx < kBK * Dv; idx += kThreads) {
-      const int c = idx / Dv, d = idx - c * Dv;
-      const int kc = k0 + c;
-      Vs[idx] =
-          kc < Sk ? ld(v, (((size_t)b * Sk + kc) * Hkv + hk) * Dv + d) : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
+    // scores: s[r][i] = q row (ty + 16 r) . key (k0 + tx + 8 i), unscaled
+    float s[TR][kKT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int r = 0; r < TR; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      for (int i = 0; i < kKT; ++i) s[r][i] = 0.0f;
+    const float* qrow = Qs + ty * L.q_stride;
+    const T* krow = Ks + tx * L.k_stride;
+    for (int d0 = 0; d0 < D; d0 += 16) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * (D + 1) + d];
+      for (int dd = 0; dd < 16; dd += 4) {
+        float qv[TR][4], kv[kKT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+        for (int r = 0; r < TR; ++r)
+          load<4>(qrow + 16 * r * L.q_stride + d0 + dd, qv[r]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kKT; ++i)
+          load<4>(krow + kLanes * i * L.k_stride + d0 + dd, kv[i]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-    }
-
+        for (int e = 0; e < 4; ++e)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
+          for (int r = 0; r < TR; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float sv = s[i][j] * scale;
-        if (causal && kpos > qpos) sv = kNegInf;
-        s[i][j] = sv;
-        if (kpos < Sk) mx = fmaxf(mx, sv);
+            for (int i = 0; i < kKT; ++i)
+              s[r][i] = fmaf(qv[r][e], kv[i][e], s[r][i]);
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
+    }
+    __syncthreads();      // K of tile t is consumed: fetch tile t+1's
+    if (t + 1 < n_tiles)
+      stage(Ks, L.k_stride, kb, k_step, k0 + kBK, Sk, wk);
+    cp_async_commit();    // (an empty group on the last tile)
+
+    // masks, on the tiles that need them (a uniform branch)
+    if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0)) {
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int i = 0; i < kKT; ++i) {
+          const int key = k0 + tx + kLanes * i;
+          if (causal && key > q0 + ty + 16 * r) s[r][i] = kNegInf;
+          if (key >= Sk) s[r][i] = -INFINITY;   // p = 0, not in the max
+        }
+    }
+    // online softmax; p^T to shared memory
+    float p[kKT][TR];
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2f((m[r] - m_new) * c);
+      const float mc = m_new * c;
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const float p = kpos < Sk ? expf(s[i][j] - m_new) : 0.0f;
-        sum += p;
-        Ps[(ty * 4 + i) * (kBK + 1) + tx + 16 * j] = round_to(p, v);
+      for (int i = 0; i < kKT; ++i) {
+        const float pv = exp2f(fmaf(s[r][i], c, -mc));
+        sum += pv;
+        p[i][r] = round_to(pv, v);
       }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
+      l[r] = l[r] * alpha + sum;
+      m[r] = m_new;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < NV * VW; ++j) acc[r][j] *= alpha;
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kKT; ++i) {
+      float* dst = Ps + (tx + kLanes * i) * L.p_stride + ty * TR;
+      if constexpr (TR == 4)
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(p[i][0], p[i][1], p[i][2], p[i][3]);
+      else
+        *reinterpret_cast<float2*>(dst) = make_float2(p[i][0], p[i][1]);
+    }
+    cp_async_wait<1>();   // V of tile t is in (K of t+1 may still fly)
+    __syncthreads();      // and everyone's, and every p
 
-    const int n_keys = min(kBK, Sk - k0);
-    for (int c = 0; c < n_keys; ++c) {
-      float pv[4], vv[NJ];
+    // O += P V over the tile's keys (keys past Sk have p = 0, V = 0)
+    const float* prow = Ps + ty * TR;
+    const T* vcol = Vs + VW * tx;
+#pragma unroll 4
+    for (int key = 0; key < kBK; ++key) {
+      float pv[TR], vv[NV][VW];
+      load<TR>(prow + key * L.p_stride, pv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * (kBK + 1) + c];
+      for (int j = 0; j < NV; ++j)
+        load<VW>(vcol + key * DV + VW * kLanes * j, vv[j]);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[c * Dv + tx + 16 * j];
+      for (int r = 0; r < TR; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NV; ++j)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] += pv[i] * vv[j];
+          for (int e = 0; e < VW; ++e)
+            acc[r][j * VW + e] = fmaf(pv[r], vv[j][e], acc[r][j * VW + e]);
     }
   }
+  cp_async_wait<0>();     // nothing in flight when the block ends
 
+  // each row's l is spread over its 8 lanes
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
+  for (int r = 0; r < TR; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 4);
+    const int qr = q0 + ty + 16 * r;
     if (qr >= Sq) continue;
-    const float inv = fmaxf(l[i], 1e-30f);
+    const float inv = 1.0f / fmaxf(lr, 1e-30f);
+    T* orow = out + (((size_t)b * Sq + qr) * Hq + h) * DV + VW * tx;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      st(out, (((size_t)b * Sq + qr) * Hq + h) * Dv + tx + 16 * j,
-         acc[i][j] / inv);
+    for (int j = 0; j < NV; ++j) {
+      float o[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) o[e] = acc[r][j * VW + e] * inv;
+      store<VW>(orow + VW * kLanes * j, o);
+    }
   }
 }
 
-template <typename T, int NJ>
+template <typename T, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const int* dims, int causal, float scale,
-                   cudaStream_t stream) {
+                   const int* dims, const Plan& p, int causal, float scale,
+                   int device, cudaStream_t stream) {
+  constexpr int TR = DV <= 128 ? 4 : 2;
+  static bool ok[kMaxDevices];
   const int B = dims[0], Sq = dims[1], Sk = dims[2], Hq = dims[3],
             Hkv = dims[4], D = dims[5];
-  const size_t smem = smem_bytes(D, NJ * 16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (!plan_ok(p, D, DV, sizeof(T))) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+      16)
+    return cudaErrorMisalignedAddress;
+  cudaError_t err =
+      allow_smem(flash_kernel<T, TR, DV>, kMaxSmem, device, ok);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(B * Hq, (Sq + p.rows - 1) / p.rows);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  flash_kernel<T, TR, DV><<<grid, kThreads, p.smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, Hq, Hkv, D,
-      causal, scale);
+      causal, scale, layout(D, DV, p.rows, sizeof(T)));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int Dv, const void* q, const void* k, const void* v,
-                     void* out, const int* dims, int causal, float scale,
-                     cudaStream_t s) {
+                     void* out, const int* dims, const Plan& p, int causal,
+                     float scale, int device, cudaStream_t s) {
+#define SIMT_CASE(DV)                                                   \
+  case DV:                                                              \
+    return launch<T, DV>(q, k, v, out, dims, p, causal, scale, device, s);
   switch (Dv) {
-    case 16: return launch<T, 1>(q, k, v, out, dims, causal, scale, s);
-    case 32: return launch<T, 2>(q, k, v, out, dims, causal, scale, s);
-    case 64: return launch<T, 4>(q, k, v, out, dims, causal, scale, s);
-    case 128: return launch<T, 8>(q, k, v, out, dims, causal, scale, s);
+    SIMT_CASE(16) SIMT_CASE(32) SIMT_CASE(64) SIMT_CASE(80) SIMT_CASE(128)
+    SIMT_CASE(256)
+#undef SIMT_CASE
     default: return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace simt
 
 }  // namespace
 
@@ -272,7 +504,6 @@ constexpr int kBQ = kRows * kCons;      // q rows per block
 constexpr int kBK = 128;                // keys per kv tile
 constexpr int kStages = 2;              // K/V ring depth
 constexpr int kThreads = 128 * (kCons + 1);  // + the producer warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -722,8 +953,9 @@ cudaError_t make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const int* dims, int causal, float scale,
+                   const int* dims, int causal, float scale, int device,
                    cudaStream_t stream) {
+  static bool ok[kMaxDevices];
   const int B = dims[0], Sq = dims[1], Sk = dims[2], Hq = dims[3],
             Hkv = dims[4];
   EncodeTiled fn;
@@ -734,10 +966,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       (err = make_map(fn, &tk, k, B, Sk, Hkv, D, kBK)) != cudaSuccess ||
       (err = make_map(fn, &tv, v, B, Sk, Hkv, D, kBK)) != cudaSuccess)
     return err;
-  err = cudaFuncSetAttribute(flash_tc_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Smem<D>::BYTES);
-  if (err != cudaSuccess) return err;
+  // the kernel's mbarriers are static shared memory: the attribute is its
+  // dynamic bytes, not the most a block may have
+  if ((err = allow_smem(flash_tc_kernel<D>, (int)Smem<D>::BYTES, device,
+                        ok)) != cudaSuccess)
+    return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_tc_kernel<D><<<grid, kThreads, Smem<D>::BYTES, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, Sq, Sk, Hq, Hkv, causal, scale);
@@ -747,22 +980,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace tc
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out). dims: B, Sq, Sk, Hq,
-// Hkv, D, Dv with Hq % Hkv == 0, 1 <= D <= 128, Dv in {16, 32, 64, 128}.
-// q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv), out
-// (B, Sq, Hq, Dv), all contiguous. causal: kpos <= qpos, both from 0.
+// Hkv, D, Dv with Hq % Hkv == 0, D a multiple of 16 in [16, 256], Dv in
+// {16, 32, 64, 80, 128, 256}. q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v
+// (B, Sk, Hkv, Dv), out (B, Sq, Hq, Dv), all contiguous and 16-byte
+// aligned. plan: simt_plan's 5 ints. causal: kpos <= qpos, both from 0.
 extern "C" int flash_attention_forward(int dtype, const void* q,
                                        const void* k, const void* v,
-                                       void* out, const int* dims, int causal,
+                                       void* out, const int* dims,
+                                       const int* plan, int causal,
                                        float scale, int device,
                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
+  const simt::Plan p{plan[0], plan[1], plan[2], plan[3], plan[4]};
   if (dtype == 0)
-    err = dispatch<float>(dims[6], q, k, v, out, dims, causal, scale, s);
+    err = simt::dispatch<float>(dims[6], q, k, v, out, dims, p, causal,
+                                scale, device, s);
   else
-    err = dispatch<__nv_bfloat16>(dims[6], q, k, v, out, dims, causal, scale,
-                                  s);
+    err = simt::dispatch<__nv_bfloat16>(dims[6], q, k, v, out, dims, p,
+                                        causal, scale, device, s);
   return (int)err;
 }
 
@@ -778,9 +1015,11 @@ extern "C" int flash_attention_tc_forward(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   if (dims[5] != dims[6]) return (int)cudaErrorInvalidValue;
   switch (dims[5]) {
-    case 64: return (int)tc::launch<64>(q, k, v, out, dims, causal, scale, s);
+    case 64:
+      return (int)tc::launch<64>(q, k, v, out, dims, causal, scale, device, s);
     case 128:
-      return (int)tc::launch<128>(q, k, v, out, dims, causal, scale, s);
+      return (int)tc::launch<128>(q, k, v, out, dims, causal, scale, device,
+                                  s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

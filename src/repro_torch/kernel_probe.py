@@ -37,7 +37,8 @@ xlstm-1.3b's widths with the flag wait, the h re-read, the dot products or
 the gate update cut, and the SM cycles of each phase of a step. The SIMT
 flash kernel (``--flash-simt``) at qwen2.5-32b's widths in fp32, S 1024,
 non-causal and causal, with its K/V staging, score products, softmax or
-P.V products cut, and the SM cycles of each phase a kv tile.
+P.V products cut, and the SM cycles of each phase a kv tile; then the
+wrapper beside SDPA at the other configurations' widths in fp32 and bf16.
 ``--maxpool`` times maxpool2d through its wrapper by graph replay.
 
 Outputs of the cut builds are not results; only their times are read. The
@@ -269,62 +270,61 @@ SLSTM_BUILDS = {"full": [], "no_barrier": ["NO_BARRIER"],
                 "no_gate": ["NO_GATE"], "timed": ["TIMED"]}
 
 
-# the SIMT flash kernel (csrc/flash_attention.cu, flash_kernel): the K/V
-# staging, the score products, the softmax (its exponentials and row
-# reductions) or the P.V products cut; the timed build counts each phase's
-# SM cycles a kv tile in thread 0 of the block with the most tiles (q head
-# 0, batch 0; stage: the staging and its barriers), written over the first
-# values of that block's first output row with the tile count and a mark
+# the SIMT flash kernel (csrc/flash_attention.cu, simt::flash_kernel): the
+# K/V copies, the score products, the softmax (its exponentials and row
+# max shuffles) or the P.V products cut; the timed build counts each
+# phase's SM cycles a kv tile in thread 0 of the block with the most tiles
+# (q head 0, batch 0; stage: the wait for K and the barrier after it, and
+# issuing V's copies; softmax: everything from the scores' end to the P.V
+# loop, its two barriers and the wait for V included), written over the
+# first values of that block's first output row with the tile count and a
+# mark
 FLASH_PHASES = ("stage", "scores", "softmax", "pv")
 FLASH_HOOKS = [
     ("#include <cstdint>\n", "#include <cstdint>\n"
      + _cuts(("STAGE", "SCORES", "SOFTMAX", "PV"))),
-    ("  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;\n",
-     "  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;\n"
-     + _TIMER + "#ifdef TIMED\n  int n_tiles = 0;\n#endif\n"),
-    ("    for (int idx = tid; idx < kBK * D; idx += kThreads) {",
-     "    for (int idx = tid; idx < (CUT_STAGE ? 0 : kBK * D); "
-     "idx += kThreads) {"),
-    ("    for (int idx = tid; idx < kBK * Dv; idx += kThreads) {",
-     "    for (int idx = tid; idx < (CUT_STAGE ? 0 : kBK * Dv); "
-     "idx += kThreads) {"),
-    ("          kc < Sk ? ld(v, (((size_t)b * Sk + kc) * Hkv + hk) * Dv + d)"
-     " : 0.0f;\n    }\n    __syncthreads();\n",
-     "          kc < Sk ? ld(v, (((size_t)b * Sk + kc) * Hkv + hk) * Dv + d)"
-     " : 0.0f;\n    }\n    __syncthreads();\n    MARK(0)\n"),
-    ("    for (int d = 0; d < D; ++d) {\n      float qv[4], kv[4];",
-     "    for (int d = 0; d < (CUT_SCORES ? 0 : D); ++d) {\n"
-     "      float qv[4], kv[4];"),
-    ("        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];\n    }\n",
-     "        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];\n    }\n"
-     "    MARK(1)\n"),
-    ("      const float m_new = fmaxf(m[i], row_max(mx));\n"
-     "      const float alpha = expf(m[i] - m_new);",
-     "      const float m_new = fmaxf(m[i], CUT_SOFTMAX ? mx : row_max(mx));\n"
-     "      const float alpha = CUT_SOFTMAX ? 1.0f : expf(m[i] - m_new);"),
-    ("        const float p = kpos < Sk ? expf(s[i][j] - m_new) : 0.0f;",
-     "        const float p = CUT_SOFTMAX ? s[i][j]\n"
-     "                        : kpos < Sk ? expf(s[i][j] - m_new) : 0.0f;"),
-    ("      l[i] = l[i] * alpha + row_sum(sum);",
-     "      l[i] = l[i] * alpha + (CUT_SOFTMAX ? sum : row_sum(sum));"),
-    ("      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;\n    }\n"
-     "    __syncthreads();\n",
-     "      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;\n    }\n"
-     "    __syncthreads();\n    MARK(2)\n"),
-    ("    for (int c = 0; c < n_keys; ++c) {",
-     "    for (int c = 0; c < (CUT_PV ? 0 : n_keys); ++c) {"),
-    ("        for (int j = 0; j < NJ; ++j) acc[i][j] += pv[i] * vv[j];\n"
-     "    }\n  }\n",
-     "        for (int j = 0; j < NJ; ++j) acc[i][j] += pv[i] * vv[j];\n"
-     "    }\n    MARK(3)\n#ifdef TIMED\n    ++n_tiles;\n#endif\n  }\n"),
-    ("         acc[i][j] / inv);\n  }\n}",
-     "         acc[i][j] / inv);\n  }\n#ifdef TIMED\n  __syncthreads();\n"
-     "  if (tid == 0 && blockIdx.x == 0 && h == 0 && b == 0) {\n"
-     "    for (int k = 0; k < 4; ++k)\n"
-     "      st(out, (size_t)q0 * Hq * Dv + k, (float)t_acc[k] / n_tiles);\n"
-     "    st(out, (size_t)q0 * Hq * Dv + 4, (float)n_tiles);\n"
-     "    st(out, (size_t)q0 * Hq * Dv + 5, -12345.0f);\n  }\n"
-     "#endif\n}"),
+    ("  for (int r = w.r0, c = w.c0; r < kBK; w.next(r, c)) {",
+     "  for (int r = w.r0, c = w.c0; r < (CUT_STAGE ? 0 : kBK); "
+     "w.next(r, c)) {"),
+    ("  const int tid = threadIdx.x, ty = tid / kLanes, tx = tid % kLanes;\n",
+     "  const int tid = threadIdx.x, ty = tid / kLanes, tx = tid % kLanes;\n"
+     + _TIMER + "#ifdef TIMED\n  int n_done = 0;\n#endif\n"),
+    ("    stage(Vs, DV, vb, v_step, k0, Sk, wv);\n    cp_async_commit();\n",
+     "    stage(Vs, DV, vb, v_step, k0, Sk, wv);\n    cp_async_commit();\n"
+     "    MARK(0)\n"),
+    ("    for (int d0 = 0; d0 < D; d0 += 16) {",
+     "    for (int d0 = 0; d0 < (CUT_SCORES ? 0 : D); d0 += 16) {"),
+    ("              s[r][i] = fmaf(qv[r][e], kv[i][e], s[r][i]);\n      }\n"
+     "    }\n",
+     "              s[r][i] = fmaf(qv[r][e], kv[i][e], s[r][i]);\n      }\n"
+     "    }\n    MARK(1)\n"),
+    ("      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));\n"
+     "      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));\n"
+     "      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));\n",
+     "      if (!CUT_SOFTMAX) {\n"
+     "      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));\n"
+     "      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));\n"
+     "      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));\n      }\n"),
+    ("      const float alpha = exp2f((m[r] - m_new) * c);",
+     "      const float alpha = CUT_SOFTMAX ? 1.0f : exp2f((m[r] - m_new) * c);"),
+    ("        const float pv = exp2f(fmaf(s[r][i], c, -mc));",
+     "        const float pv = CUT_SOFTMAX ? s[r][i]\n"
+     "                                     : exp2f(fmaf(s[r][i], c, -mc));"),
+    ("    __syncthreads();      // and everyone's, and every p\n",
+     "    __syncthreads();      // and everyone's, and every p\n    MARK(2)\n"),
+    ("    for (int key = 0; key < kBK; ++key) {",
+     "    for (int key = 0; key < (CUT_PV ? 0 : kBK); ++key) {"),
+    ("            acc[r][j * VW + e] = fmaf(pv[r], vv[j][e], acc[r][j * VW + e]);"
+     "\n    }\n  }\n",
+     "            acc[r][j * VW + e] = fmaf(pv[r], vv[j][e], acc[r][j * VW + e]);"
+     "\n    }\n    MARK(3)\n#ifdef TIMED\n    ++n_done;\n#endif\n  }\n"),
+    ("      store<VW>(orow + VW * kLanes * j, o);\n    }\n  }\n}",
+     "      store<VW>(orow + VW * kLanes * j, o);\n    }\n  }\n"
+     "#ifdef TIMED\n  __syncthreads();\n"
+     "  if (tid == 0 && blockIdx.y == 0 && h == 0 && b == 0) {\n"
+     "    float* o = reinterpret_cast<float*>(out) + (size_t)q0 * Hq * DV;\n"
+     "    for (int k = 0; k < 4; ++k) o[k] = (float)t_acc[k] / n_done;\n"
+     "    o[4] = (float)n_done;\n    o[5] = -12345.0f;\n  }\n#endif\n}"),
 ]
 FLASH_BUILDS = {"full": [], "no_stage": ["NO_STAGE"],
                 "no_scores": ["NO_SCORES"], "no_softmax": ["NO_SOFTMAX"],
@@ -740,6 +740,36 @@ def probe_flash_simt(out_dir: Path):
             else:
                 row[f"{name}_ms"] = ms
         report["causal" if causal else "noncausal"] = row
+    report["widths_S1024"] = probe_flash_widths()
+    return report
+
+
+def probe_flash_widths():
+    """The flash wrapper beside F.scaled_dot_product_attention at the other
+    configurations' attention widths (chip_smoke.SIMT_WIDTHS), S 1024,
+    fp32 and bf16, non-causal and causal: ms by CUDA events."""
+    import torch
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.timing import cuda_ms
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    report = {}
+    for label, (hq, hkv, d, dv) in chip_smoke.SIMT_WIDTHS.items():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((1, 1024, hq, d), (1, 1024, hkv, d),
+                                     (1, 1024, hkv, dv)))
+            for causal in (False, True):
+                call = (lambda: fa.flash_attention_causal_gqa(q, k, v)) \
+                    if causal else \
+                    (lambda: fa.flash_attention(q, k, v, causal=False))
+                report[f"{label}/{str(dt).split('.')[-1]}/"
+                       f"{'causal' if causal else 'noncausal'}"] = {
+                    "kernel": fa.kernel_for(dt, d, dv),
+                    "ms": cuda_ms(call, reps=5),
+                    "sdpa_ms": cuda_ms(
+                        lambda: chip_smoke.sdpa(q, k, v, causal), reps=5)}
     return report
 
 

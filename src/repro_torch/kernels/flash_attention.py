@@ -13,8 +13,12 @@ block sizes are checked but do not tile the kernels.
 Which kernel a CUDA call launches is a fixed rule on dtype and head width
 (``kernel_for``): bfloat16 q, k, v with D == Dv in (64, 128) go to the
 tensor-core kernel (wgmma fed by TMA, ``"tc"``); float32, and bfloat16 at
-any other width, go to the SIMT kernel (``"simt"``). A kernel that fails to
-build or launch raises; there is no second try on the other one. Both
+any other width, go to the SIMT kernel (``"simt"``), whose tiles and shared
+memory come from ``simt_plan``. The kernels take D a multiple of 16 up to
+256 and Dv in ``SIMT_DV`` (every attention width of the repository's LM
+configurations: 80, 128, 256, and MLA's D 192 with Dv 128); other widths
+raise. A kernel that fails to build or launch raises; there is no second
+try on the other one. Both
 wrappers count every launch on ``flash_attention.launches`` and each
 kernel's on ``flash_attention.tc_launches`` or ``.simt_launches``.
 
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -57,6 +62,67 @@ def _check(name, q, k, v, block_q, block_k, fold: bool):
 
 
 TC_WIDTHS = (64, 128)
+SIMT_DV = (16, 32, 64, 80, 128, 256)   # the SIMT kernel's Dv instances
+MAX_D = 256
+
+# The SIMT kernel's fixed shape (csrc/flash_attention.cu, namespace simt):
+# 128 threads as 16 row groups x 8 lanes, 4 keys a lane, so 32-key tiles;
+# 16-byte pads on the Q, K and P^T rows; __launch_bounds__(128, 3) keeps a
+# thread at 168 registers or fewer, so the registers allow 3 blocks an SM.
+SIMT_THREADS = 128
+SIMT_ROW_GROUPS = 16
+SIMT_LANES = 8
+SIMT_KEYS = 32
+SIMT_PAD = 16
+SIMT_REG_BLOCKS = 3
+SMEM_BLOCK_MAX = 232448     # dynamic shared bytes a block may have
+SMEM_SM = 233472            # shared bytes an SM has for its blocks
+SMEM_RESERVED = 1024        # bytes the system keeps for each block
+
+
+class SimtPlan(NamedTuple):
+    """The SIMT kernel's launch plan for one (D, Dv, dtype); the kernel
+    checks it (``simt::plan_ok``) and computes the same layout."""
+    rows_per_thread: int      # TR: q rows ty + 16 r, r < TR
+    rows: int                 # q rows a block
+    keys: int                 # keys a kv tile
+    threads: int
+    smem: int                 # dynamic shared bytes
+    blocks_per_sm: int        # what shared memory and registers allow
+
+
+def check_widths(d: int, dv: int):
+    """Raise unless the kernels take head widths D, Dv."""
+    if d % 16 or not 16 <= d <= MAX_D or dv not in SIMT_DV:
+        raise ValueError(f"flash_attention: the kernels take D a multiple "
+                         f"of 16 in [16, {MAX_D}] and Dv in {SIMT_DV}, got "
+                         f"D {d}, Dv {dv}")
+
+
+def simt_layout(d: int, dv: int, rows: int, esize: int) -> dict:
+    """Byte offsets of the SIMT kernel's shared arrays: Q fp32 [rows][D+4],
+    K [32][D + 16/esize] and V [32][Dv] in the inputs' dtype, P^T fp32
+    [32][rows+4] (``simt::layout`` in the .cu)."""
+    q = rows * (d + SIMT_PAD // 4) * 4
+    k = SIMT_KEYS * (d + SIMT_PAD // esize) * esize
+    v = SIMT_KEYS * dv * esize
+    p = SIMT_KEYS * (rows + SIMT_PAD // 4) * 4
+    return {"q": 0, "k": q, "v": q + k, "p": q + k + v,
+            "bytes": q + k + v + p}
+
+
+def simt_plan(d: int, dv: int, dtype: torch.dtype) -> SimtPlan:
+    """Rows, keys, threads and shared bytes of the SIMT kernel at head
+    widths D, Dv and q/k/v ``dtype``: 4 rows a thread (64 a block) for
+    Dv <= 128, 2 (32 a block) above, where the accumulator would
+    otherwise pass 128 registers."""
+    check_widths(d, dv)
+    esize = {torch.float32: 4, torch.bfloat16: 2}[dtype]
+    tr = 4 if dv <= 128 else 2
+    rows = SIMT_ROW_GROUPS * tr
+    smem = simt_layout(d, dv, rows, esize)["bytes"]
+    blocks = min(SMEM_SM // (smem + SMEM_RESERVED), SIMT_REG_BLOCKS)
+    return SimtPlan(tr, rows, SIMT_KEYS, SIMT_THREADS, smem, blocks)
 
 
 def kernel_for(dtype: torch.dtype, d: int, dv: int) -> str:
@@ -68,12 +134,13 @@ def kernel_for(dtype: torch.dtype, d: int, dv: int) -> str:
 
 
 def _aligned(t):
-    """t, or a copy of it whose data is 16-byte aligned (TMA's rule)."""
+    """t, or a copy of it whose data is 16-byte aligned (the rule of TMA
+    and of the SIMT kernel's 16-byte copies)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 _TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-SIMT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + _TAIL
+SIMT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + _TAIL
 TC_ARGTYPES = [ctypes.c_void_p] * 5 + _TAIL
 
 
@@ -84,11 +151,7 @@ def _check_launch(q, k, v):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: q, k, v dtypes {q.dtype}, "
                         f"{k.dtype}, {v.dtype} differ")
-    d, dv = q.shape[3], v.shape[3]
-    if not 1 <= d <= 128 or dv not in (16, 32, 64, 128):
-        raise ValueError(f"flash_attention: the kernel takes head widths "
-                         f"D <= 128 and Dv in (16, 32, 64, 128), got D {d}, "
-                         f"Dv {dv}")
+    check_widths(q.shape[3], v.shape[3])
 
 
 def launch_args(q, k, v, causal: bool):
@@ -100,17 +163,17 @@ def launch_args(q, k, v, causal: bool):
     _check_launch(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, dv = v.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     kernel = kernel_for(q.dtype, d, dv)
-    if kernel == "tc":
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
     dims = (ctypes.c_int * 7)(b, sq, sk, hq, hkv, d, dv)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dims,
-            int(causal), 1.0 / math.sqrt(d), *_build.device_stream(q.device))
-    if kernel == "simt":
-        args = (_build.dtype_code(q), *args)
-    return kernel, args, out, (q, k, v, dims)
+    tail = (int(causal), 1.0 / math.sqrt(d), *_build.device_stream(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dims)
+    if kernel == "tc":
+        return kernel, (*ptrs, *tail), out, (q, k, v, dims)
+    plan = (ctypes.c_int * 5)(*simt_plan(d, dv, q.dtype)[:5])
+    args = (_build.dtype_code(q), *ptrs, plan, *tail)
+    return kernel, args, out, (q, k, v, dims, plan)
 
 
 def _launch(q, k, v, causal: bool):

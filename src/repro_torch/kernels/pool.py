@@ -3,8 +3,9 @@ kernels.
 
 Replace the Pallas kernels ``repro/kernels/pool.py::maxpool2d``,
 ``::adaptive_avg_pool2d`` and ``::adaptive_avg_pool3d``. ``csrc/pool.cu``
-holds a floor-window max pool (one thread per output) and a 3D adaptive
-average pool (one block per output cell and 32 channels, its warps
+holds a floor-window max pool (one thread per output pixel and 16 bytes of
+channels, 32-bit indices: inputs of 2^31 elements or more raise) and a 3D
+adaptive average pool (one block per output cell and 32 channels, its warps
 splitting the window), which the 2D pool calls with D = od = 1; see that
 file for the design. Each wrapper counts its own launches.
 
@@ -59,6 +60,9 @@ def maxpool2d(x: torch.Tensor, k: int = 2) -> torch.Tensor:
     if x.device.type == "cpu":
         return maxpool2d_plain(x, k)
     x = _on_card("maxpool2d", x)
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"maxpool2d: {x.numel()} elements; the kernel "
+                         f"indexes with 32 bits (below 2^31)")
     B, H, W, C = x.shape
     out = torch.empty((B, H // k, W // k, C), dtype=x.dtype, device=x.device)
     if out.numel() == 0:

@@ -292,6 +292,39 @@ MEDIUM_OPS = {
 }
 
 
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((10, 20, 30, 32), 2), ((2, 7, 9, 8), 2), ((2, 6, 10, 5), 2),
+    ((3, 9, 11, 16), 3), ((1, 9, 13, 4), 4)],
+    ids=["medium_branch", "odd_hw", "ragged_c", "k3", "k4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool2d_bitwise_with_nan_and_signed_zero_ties(dev, shape, k,
+                                                         dtype):
+    """maxpool2d equals F.max_pool2d bit for bit: NaNs stick, ties of +0
+    and -0 keep the first in row-major window order, the odd edge is
+    dropped; 16-byte vectors (C a multiple of 4 or 8), the scalar path
+    (ragged C), and k = 2 unrolled or other k read at run time."""
+    gen = torch.Generator().manual_seed(sum(shape) + k)
+    x = torch.randn(shape, generator=gen)
+    flat = x.view(-1)
+    idx = torch.randperm(flat.numel(), generator=gen)
+    flat[idx[:7]] = float("nan")
+    flat[idx[7:40]] = 0.0
+    flat[idx[40:80]] = -0.0
+    x[0, :k, :k] = 0.0                  # a window of +0 after -0 ...
+    x[0, 0, 0] = -0.0                   # ... and its first value -0
+    x = x.to(dtype).to(dev)
+    before = pool.maxpool2d.launches
+    out = pool.maxpool2d(x, k)
+    assert pool.maxpool2d.launches == before + 1
+    want = pool.maxpool2d_plain(x, k)
+    assert out.shape == want.shape and out.dtype == dtype
+    assert torch.isnan(out).any() and bool((_bits(out) == _bits(want)).all())
+
+
 @pytest.mark.parametrize("op", list(MEDIUM_OPS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_per_op_kernel_matches_plain(dev, op, dtype):
@@ -466,7 +499,18 @@ FLASH_CASES = {   # (B, Sq, Sk, Hq, Hkv, D, dtype, input scale)
     "tc_bf16_gqa5": (1, 512, 512, 10, 2, 128, torch.bfloat16, 1.0),
     "tc_bf16_ragged_200": (1, 200, 200, 10, 2, 128, torch.bfloat16, 1.0),
     "tc_bf16_256x512": (1, 256, 512, 4, 2, 128, torch.bfloat16, 1.0),
+    # the SIMT kernel at the configurations' other widths: hubert-xlarge's
+    # 80, recurrentgemma-2b's 256 (one kv head), deepseek-v3's MLA D 192
+    # with Dv 128, and a ragged S at 256; fp32 and bf16
+    "simt_d80": (1, 256, 256, 4, 4, 80, torch.float32, 0.5),
+    "simt_d80_bf16": (1, 256, 256, 4, 4, 80, torch.bfloat16, 1.0),
+    "simt_d256_gqa": (1, 256, 256, 4, 1, 256, torch.float32, 0.5),
+    "simt_d256_bf16": (1, 256, 256, 4, 1, 256, torch.bfloat16, 1.0),
+    "simt_d256_ragged_200": (1, 200, 200, 4, 2, 256, torch.float32, 0.5),
+    "simt_mla_d192": (1, 256, 256, 4, 4, 192, torch.float32, 0.5),
+    "simt_mla_d192_bf16": (1, 256, 256, 4, 4, 192, torch.bfloat16, 1.0),
 }
+FLASH_DV = {"simt_mla_d192": 128, "simt_mla_d192_bf16": 128}  # else Dv = D
 # The tensor-core cases hold the kernel to the reference's online-softmax
 # path in these chunks (p rounded to bf16 before it is normalised, as in
 # the kernel): the direct path rounds the normalised p, which parts from
@@ -474,7 +518,8 @@ FLASH_CASES = {   # (B, Sq, Sk, Hq, Hkv, D, dtype, input scale)
 # (tests/test_torch_flash_tc.py).
 FLASH_REF_CHUNK = {"tc_bf16_d64": 64, "tc_bf16_d128": 64,
                    "tc_bf16_gqa5": 128, "tc_bf16_ragged_200": 40,
-                   "tc_bf16_256x512": 128}
+                   "tc_bf16_256x512": 128, "simt_d80_bf16": 32,
+                   "simt_d256_bf16": 32, "simt_mla_d192_bf16": 32}
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
@@ -484,9 +529,11 @@ def test_flash_attention_matches_plain(dev, case):
     by element, 2e-3 + 1e-2 |ref| (chip_smoke.flash_excess); one launch per
     call, on the kernel that flash.kernel_for names."""
     b, sq, sk, hq, hkv, d, dt, scale = FLASH_CASES[case]
+    dv = FLASH_DV.get(case, d)
     gen = torch.Generator().manual_seed(sq + hq)
     q, k, v = ((torch.randn(shape, generator=gen) * scale).to(dt).to(dev)
-               for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, dv)))
     tol = 2e-5 if dt == torch.float32 else 3e-2
     # JAX's default blocks where 128 does not divide the sequence
     blocks = dict(block_q=128, block_k=128) if sq % 128 == sk % 128 == 0 \
@@ -496,7 +543,7 @@ def test_flash_attention_matches_plain(dev, case):
     if sq == sk:
         calls.append((lambda: flash.flash_attention_causal_gqa(
             q, k, v, **blocks), True))
-    kernel = flash.kernel_for(dt, d, d)
+    kernel = flash.kernel_for(dt, d, dv)
     assert kernel == ("tc" if case.startswith("tc_") or case.startswith(
         "qwen") else "simt")
     for call, causal in calls:
@@ -513,6 +560,22 @@ def test_flash_attention_matches_plain(dev, case):
                                    atol=tol)
         if dt == torch.bfloat16:
             assert chip_smoke.flash_excess(out, want) <= 1.0
+
+
+def test_flash_attention_simt_takes_unaligned_views(dev):
+    """An fp32 q that starts 4 bytes into its storage (the SIMT kernel
+    copies 16 bytes at a time) is copied first, and matches."""
+    gen = torch.Generator().manual_seed(10)
+    base = torch.randn((1 + 1 * 96 * 4 * 80,), generator=gen) * 0.5
+    q = base.to(dev)[1:].view(1, 96, 4, 80)
+    k, v = ((torch.randn((1, 96, 2, 80), generator=gen) * 0.5).to(dev)
+            for _ in range(2))
+    assert q.data_ptr() % 16 != 0
+    before = flash.flash_attention.simt_launches
+    out = flash.flash_attention_causal_gqa(q, k, v, block_q=32, block_k=32)
+    assert flash.flash_attention.simt_launches == before + 1
+    torch.testing.assert_close(out, ref.attention(q, k, v, causal=True),
+                               rtol=0, atol=2e-5)
 
 
 def test_flash_attention_tc_takes_unaligned_views(dev):
