@@ -48,7 +48,7 @@ Phases, one JSON line each on stdout:
      kernel), at the CPU tests' shapes and at a ragged bf16 S 200, timed
      beside F.scaled_dot_product_attention; the SIMT kernel at
      hubert-xlarge's (80), recurrentgemma-2b's (256) and deepseek-v3's MLA
-     (D 192, Dv 128) widths, fp32 at S 1024 (timed beside SDPA) and bf16
+     (D 192, Dv 128, its 128 heads) widths, fp32 at S 1024 (timed beside SDPA) and bf16
      at S 512; flash's build seconds and ptxas report; (b) slstm_fused at xlstm-1.3b's widths
      (B 8, S 4096, 4 heads of 512, fp32 wx) against ref.slstm_sequential,
      the error over the first and the last 64 steps; at the JAX package's
@@ -805,10 +805,10 @@ def sdpa(q, k, v, causal):
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # (q heads, kv heads, D, Dv) of the other LM configurations' attention:
 # hubert-xlarge, recurrentgemma-2b (its local attention as global: the
-# kernel has no window), deepseek-v3's MLA with 16 of its 128 heads
+# kernel has no window), deepseek-v3's MLA (128 heads, its kv per head)
 SIMT_WIDTHS = {"hubert_xlarge_d80": (16, 16, 80, 80),
                "recurrentgemma_2b_d256": (10, 1, 256, 256),
-               "deepseek_v3_mla_d192_dv128": (16, 16, 192, 128)}
+               "deepseek_v3_mla_d192_dv128": (128, 128, 192, 128)}
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 2e-3
 SLSTM_TOL = 1e-4
 

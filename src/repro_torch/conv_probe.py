@@ -79,6 +79,7 @@ def build(out_dir: Path):
         so = out_dir / f"libconv_probe_{name}.so"
         procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.ARCH, *_build.COMMON_FLAGS,
+             *_build.INCLUDE,
              *[f"-D{m}" for m in macros], "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT), so)
     libs = {}

@@ -68,6 +68,8 @@
 // Meshes of up to 2,048 nodes (60x30 has 1,891); the wrapper raises above.
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxNodes = 2048;   // nodes a slot: NPT * threads
@@ -370,23 +372,6 @@ cg_solve_kernel(const float* __restrict__ X, const float* __restrict__ mask,
   if (tid == 0) its_out[b] = its;
 }
 
-constexpr int kMaxSmem = 232448;     // dynamic shared bytes a block may have
-constexpr int kMaxDevices = 64;
-
-// Lets `kernel` take up to kMaxSmem of dynamic shared memory on `device`,
-// once per kernel and device: a cudaFuncSetAttribute per call costs host
-// time and, once torch.profiler has run in the process, a kernel record of
-// a later profile.
-template <typename K>
-cudaError_t allow_smem(K kernel, int device, bool (&done)[kMaxDevices]) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
-}
-
 template <int NPT, int W>
 cudaError_t launch(size_t smem, int B, int device, cudaStream_t stream,
                    const float* X,
@@ -395,8 +380,8 @@ cudaError_t launch(size_t smem, int B, int device, cudaStream_t stream,
                    float* Uout, int* its_out, int nelx, int nely, int pn,
                    float e_min, float one_minus_e_min, float tol,
                    int max_iter) {
-  static bool ok[kMaxDevices];
-  const cudaError_t err = allow_smem(cg_solve_kernel<NPT, W>, device, ok);
+  const cudaError_t err =
+      allow_smem((const void*)cg_solve_kernel<NPT, W>, (int)smem, device);
   if (err != cudaSuccess) return err;
   cg_solve_kernel<NPT, W><<<B, 32 * W, smem, stream>>>(
       X, mask, f, free_mask, KE, need, U0, Uout, its_out, nelx, nely, pn,

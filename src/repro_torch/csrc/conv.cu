@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -483,45 +485,17 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-constexpr int kMaxSmem = 232448;     // dynamic shared bytes a block may have
-constexpr int kMaxDevices = 64;
-
-// Lets `kernel` take up to kMaxSmem of dynamic shared memory on `device`,
-// once per kernel and device: a cudaFuncSetAttribute per call costs host
-// time and, once torch.profiler has run in the process, a kernel record of
-// a later profile.
-template <typename K>
-cudaError_t allow_smem(K kernel, int device, bool (&done)[kMaxDevices]) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
-}
-
-// a kernel's input and weight types
-template <typename F>
-struct KernelTypes;
 template <typename TX, typename TW>
-struct KernelTypes<void (*)(const TX*, const TW*, TX*, Dims, Plan, int)> {
-  using X = TX;
-  using W = TW;
-};
-
-template <auto Kernel>
-int launch(const void* x, const void* w, void* out, const int* dims,
+int launch(void (*kernel)(const TX*, const TW*, TX*, Dims, Plan, int),
+           const void* x, const void* w, void* out, const int* dims,
            const int* plan, int fuse_silu, int device, cudaStream_t stream) {
-  using TX = typename KernelTypes<decltype(Kernel)>::X;
-  using TW = typename KernelTypes<decltype(Kernel)>::W;
-  static bool ok[kMaxDevices];
   const Dims g{dims[0], dims[1], dims[2], dims[3], dims[4],
                dims[5], dims[6], dims[7], dims[8]};
   const Plan p{plan[0], plan[1], plan[2], plan[3],
                plan[4], plan[5], plan[6], plan[7]};
-  const cudaError_t err = allow_smem(Kernel, device, ok);
+  const cudaError_t err = allow_smem((const void*)kernel, p.smem, device);
   if (err != cudaSuccess) return (int)err;
-  Kernel<<<dim3((unsigned)p.grid_x, (unsigned)p.grid_y), p.threads, p.smem,
+  kernel<<<dim3((unsigned)p.grid_x, (unsigned)p.grid_y), p.threads, p.smem,
            stream>>>((const TX*)x, (const TW*)w, (TX*)out, g, p, fuse_silu);
   return (int)cudaGetLastError();
 }
@@ -543,16 +517,16 @@ extern "C" int conv3d_forward(int x_dtype, int w_dtype, const void* x,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_dtype == 0 && w_dtype == 0)
-    return launch<conv_simt_kernel<float, float>>(x, w, out, dims, plan,
-                                                  fuse_silu, device, s);
+    return launch(conv_simt_kernel<float, float>, x, w, out, dims, plan,
+                  fuse_silu, device, s);
   if (x_dtype == 0)
-    return launch<conv_simt_kernel<float, bf16>>(x, w, out, dims, plan,
-                                                 fuse_silu, device, s);
+    return launch(conv_simt_kernel<float, bf16>, x, w, out, dims, plan,
+                  fuse_silu, device, s);
   if (w_dtype == 0)
-    return launch<conv_simt_kernel<bf16, float>>(x, w, out, dims, plan,
-                                                 fuse_silu, device, s);
-  return launch<conv_simt_kernel<bf16, bf16>>(x, w, out, dims, plan,
-                                              fuse_silu, device, s);
+    return launch(conv_simt_kernel<bf16, float>, x, w, out, dims, plan,
+                  fuse_silu, device, s);
+  return launch(conv_simt_kernel<bf16, bf16>, x, w, out, dims, plan,
+                fuse_silu, device, s);
 }
 
 // The tensor-core kernel: bf16 x and w, Cin % 16 == 0, Cout % 8 == 0,
@@ -565,14 +539,14 @@ extern "C" int conv3d_tc_forward(const void* x, const void* w, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   switch (plan[2]) {
     case 8:
-      return launch<conv_tc_kernel<1>>(x, w, out, dims, plan, fuse_silu,
-                                       device, s);
+      return launch(conv_tc_kernel<1>, x, w, out, dims, plan, fuse_silu,
+                    device, s);
     case 16:
-      return launch<conv_tc_kernel<2>>(x, w, out, dims, plan, fuse_silu,
-                                       device, s);
+      return launch(conv_tc_kernel<2>, x, w, out, dims, plan, fuse_silu,
+                    device, s);
     case 32:
-      return launch<conv_tc_kernel<4>>(x, w, out, dims, plan, fuse_silu,
-                                       device, s);
+      return launch(conv_tc_kernel<4>, x, w, out, dims, plan, fuse_silu,
+                    device, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -763,28 +765,10 @@ bool plan_ok(const Plan& p, const Dims& dm, int V) {
   return true;
 }
 
-constexpr int kMaxSmem = 232448;     // dynamic shared bytes a block may have
-constexpr int kMaxDevices = 64;
-
-// Lets `kernel` take up to kMaxSmem of dynamic shared memory on `device`,
-// once per kernel and device (the plan's sizes never exceed it): a
-// cudaFuncSetAttribute per call costs host time and, once torch.profiler
-// has run in the process, a kernel record of a later profile.
-template <typename K>
-cudaError_t allow_smem(K kernel, int device, bool (&done)[kMaxDevices]) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
-}
-
 template <typename T>
 int launch(const void* lv_, const void* hist_, const void* const* w_,
            float* rowsum, float* bpart, float* out, const Dims& dm,
            const Plan& p, int device, cudaStream_t stream) {
-  static bool conv_ok[kMaxDevices], head_ok[kMaxDevices];
   constexpr int V = 16 / sizeof(T);
   if (!plan_ok(p, dm, V) || p.conv_smem > kMaxSmem || p.head_smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -804,13 +788,15 @@ int launch(const void* lv_, const void* hist_, const void* const* w_,
   const T* bf2 = (const T*)w_[9];
   cudaError_t err;
 
-  if ((err = allow_smem(conv_kernel<T>, device, conv_ok)) != cudaSuccess)
+  if ((err = allow_smem((const void*)conv_kernel<T>, p.conv_smem, device)) !=
+      cudaSuccess)
     return (int)err;
   conv_kernel<T><<<dim3(p.conv_blocks, dm.B), kThreads, p.conv_smem, stream>>>(
       lv, hist, tc1, tc2, bc1, bc2, rowsum, bpart, dm, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  if ((err = allow_smem(head_kernel<T, V>, device, head_ok)) != cudaSuccess)
+  if ((err = allow_smem((const void*)head_kernel<T, V>, p.head_smem,
+                        device)) != cudaSuccess)
     return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.cluster, dm.B, 1);

@@ -80,29 +80,12 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxSmem = 232448;     // dynamic shared bytes a block may have
-constexpr int kMaxDevices = 64;
-
-// Lets `kernel` take `bytes` of dynamic shared memory on `device` (its
-// static shared memory and `bytes` together at most kMaxSmem), once per
-// kernel and device: a cudaFuncSetAttribute per call costs host time and,
-// once torch.profiler has run in the process, a kernel record of a later
-// profile.
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, int device,
-                       bool (&done)[kMaxDevices]) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
-}
-
 namespace simt {
 
 constexpr int kThreads = 128;   // 16 row groups x 8 lanes
@@ -456,7 +439,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const int* dims, const Plan& p, int causal, float scale,
                    int device, cudaStream_t stream) {
   constexpr int TR = DV <= 128 ? 4 : 2;
-  static bool ok[kMaxDevices];
   const int B = dims[0], Sq = dims[1], Sk = dims[2], Hq = dims[3],
             Hkv = dims[4], D = dims[5];
   if (!plan_ok(p, D, DV, sizeof(T))) return cudaErrorInvalidValue;
@@ -465,7 +447,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       16)
     return cudaErrorMisalignedAddress;
   cudaError_t err =
-      allow_smem(flash_kernel<T, TR, DV>, kMaxSmem, device, ok);
+      allow_smem((const void*)flash_kernel<T, TR, DV>, p.smem, device);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, (Sq + p.rows - 1) / p.rows);
   if (grid.y > 65535) return cudaErrorInvalidValue;
@@ -955,7 +937,6 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const int* dims, int causal, float scale, int device,
                    cudaStream_t stream) {
-  static bool ok[kMaxDevices];
   const int B = dims[0], Sq = dims[1], Sk = dims[2], Hq = dims[3],
             Hkv = dims[4];
   EncodeTiled fn;
@@ -966,10 +947,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       (err = make_map(fn, &tk, k, B, Sk, Hkv, D, kBK)) != cudaSuccess ||
       (err = make_map(fn, &tv, v, B, Sk, Hkv, D, kBK)) != cudaSuccess)
     return err;
-  // the kernel's mbarriers are static shared memory: the attribute is its
-  // dynamic bytes, not the most a block may have
-  if ((err = allow_smem(flash_tc_kernel<D>, (int)Smem<D>::BYTES, device,
-                        ok)) != cudaSuccess)
+  if ((err = allow_smem((const void*)flash_tc_kernel<D>,
+                        (int)Smem<D>::BYTES, device)) != cudaSuccess)
     return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_tc_kernel<D><<<grid, kThreads, Smem<D>::BYTES, stream>>>(

@@ -52,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -301,30 +303,12 @@ bool plan_ok(const Plan& p, int B, int nh, int dh) {
   return p.smem == 4 * smem_floats(dh, p.U, p.KS, p.bpad);
 }
 
-constexpr int kMaxSmem = 232448;     // dynamic shared bytes a block may have
-constexpr int kMaxDevices = 64;
-
-// Lets `kernel` take up to kMaxSmem of dynamic shared memory on `device`,
-// once per kernel and device: a cudaFuncSetAttribute per call costs host
-// time and, once torch.profiler has run in the process, a kernel record of
-// a later profile.
-template <typename K>
-cudaError_t allow_smem(K kernel, int device, bool (&done)[kMaxDevices]) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
-}
-
 template <typename T>
 int launch(const void* wx, const float* r, void* out, float* hbuf, int* flags,
            int B, int S, int nh, int dh, const Plan& p, int device,
            cudaStream_t stream) {
   if (!plan_ok(p, B, nh, dh)) return (int)cudaErrorInvalidValue;
-  static bool ok[kMaxDevices];
-  cudaError_t err = allow_smem(slstm_kernel<T>, device, ok);
+  cudaError_t err = allow_smem((const void*)slstm_kernel<T>, p.smem, device);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0, sms = 0, coop = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, slstm_kernel<T>,

@@ -350,7 +350,8 @@ def build(out_dir: Path, source: str, hooks, builds, extra):
     for name, macros in builds.items():
         so = out_dir / f"lib{source}_probe_{name}.so"
         procs[name] = (subprocess.Popen(
-            [_build.nvcc(), *_build.ARCH, *_build.COMMON_FLAGS, *extra,
+            [_build.nvcc(), *_build.ARCH, *_build.COMMON_FLAGS,
+             *_build.INCLUDE, *extra,
              *[f"-D{m}" for m in macros], "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT), so)
     libs = {}

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``build/kernels/lib<name>-<hash>.so`` under the repository root
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the headers of ``csrc/`` and the flags, so an
+edited source or header rebuilds).
 The build happens at first use and never at import; ``build_all`` starts one
 nvcc per source at once and waits for all of them. ``function``,
 ``dtype_code``, ``device_stream`` and ``check`` are the ctypes plumbing the
@@ -23,6 +24,8 @@ from typing import Dict, Iterable, Optional, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# the shared headers, also for a copy of a source built elsewhere
+INCLUDE = ["-I", str(CSRC)]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
 # per-source flags: the CG solve rounds every multiply and add on its own,
@@ -59,6 +62,8 @@ def nvcc() -> str:
 def _target(name: str) -> Path:
     flags = ARCH + COMMON_FLAGS + SOURCES[name]
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -76,8 +81,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> float:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = out.with_suffix(f".{os.getpid()}.log")
-        cmd = [nvcc(), *ARCH, *COMMON_FLAGS, *SOURCES[name], "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *ARCH, *COMMON_FLAGS, *SOURCES[name], *INCLUDE,
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
         with open(log, "w") as f:
             proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
         procs[name] = (proc, tmp, out, log)

@@ -52,3 +52,28 @@ def test_build_all_raises_with_the_failed_log(fake_nvcc):
     with pytest.raises(RuntimeError, match="(?s)silu.*exit 2.*error: silu"):
         _build.build_all(["silu", "pool"])
     assert [p.name.split("-")[0] for p in fake_nvcc.iterdir()] == ["libpool"]
+
+
+def test_target_covers_the_shared_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in _build.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build._target(name) for name in _build.SOURCES}
+    with open(csrc / "common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {name: _build._target(name) for name in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+
+
+def test_only_the_shared_helper_sets_the_shared_memory_attribute():
+    """Every source that takes dynamic shared memory sets the attribute
+    through common.cuh's allow_smem, once per kernel and device."""
+    for path in _build.CSRC.glob("*.cu"):
+        src = path.read_text()
+        assert "cudaFuncSetAttribute" not in src, path.name
+        if "allow_smem(" in src:
+            assert '#include "common.cuh"' in src, path.name
+    header = (_build.CSRC / "common.cuh").read_text()
+    assert header.count("cudaFuncSetAttribute(") == 1
