@@ -32,13 +32,18 @@ Phases, one JSON line each on stdout:
      latency of 30 synchronised calls, the launches per call and each
      path's device time by graph replay (reported: whether l2l3 takes less
      than l1); every per-op kernel must be launched by (b).
-  4. breakdown — silu_lut and silu_exact against their plain versions at
-     fp32 and bf16 on 2^14 elements, on CRONet medium's largest SiLU input at
-     4 slots (768,000) and on 2^26 elements (a bandwidth reading), with the
-     tails, every table point and every midpoint (and their neighbouring
-     floats) among the inputs; then repro_torch.layer_breakdown.run at
-     medium (paper Fig 7, bf16), which must launch both SiLU kernels and
-     each convolution wrapper's tensor-core kernel.
+  4. breakdown — silu_lut and silu_exact bitwise equal to their plain
+     versions (NaN where they have NaN), one launch a call, at fp32 and
+     bf16 on 2^14 elements, on CRONet medium's largest SiLU input at 4
+     slots (768,000), on 2^26 elements (a bandwidth reading), on 2^14 + 3
+     and on a view one element into its buffer, with the tails, the
+     infinities, NaN of both signs, every table point and every midpoint
+     (and their neighbouring floats) among the inputs; the first three
+     timed by graph replay beside an ``empty`` build of csrc/silu.cu at
+     the same grid (the launch floor), the plain version and F.silu; then
+     repro_torch.layer_breakdown.run at medium (paper Fig 7, bf16), which
+     must launch both SiLU kernels and each convolution wrapper's
+     tensor-core kernel.
   5. lm_kernels — (a) flash_attention (non-causal, the GQA fold) and
      flash_attention_causal_gqa at qwen2.5-32b's attention widths (B 1,
      S 4096, 40 q heads on 8 kv heads, D 128, bf16: each call must launch
@@ -692,8 +697,9 @@ def silu_inputs(n: int, gen):
     """n fp32 values: normal draws (scale 4) after the cases where a table
     lookup can go wrong: every table point and every midpoint between two
     of them (the arithmetic midpoint and the fp32 value nearest the exact
-    tie of the index formula), each with its two neighbouring floats, and
-    the tails on both sides of -8 and 8."""
+    tie of the index formula), each with its two neighbouring floats, the
+    tails on both sides of -8 and 8, the infinities and NaN of both
+    signs."""
     import torch
     from repro_torch.kernels import ref, silu
     grid = ref.linspace(silu.LO, silu.HI, silu.N_ENTRIES)
@@ -702,7 +708,8 @@ def silu_inputs(n: int, gen):
             * (silu.HI - silu.LO) / (silu.N_ENTRIES - 1) + silu.LO).float()
     pts = torch.cat([grid, mids, ties])
     inf = torch.full_like(pts, math.inf)
-    tails = torch.tensor([-1e4, -20.0, -8.0, 8.0, 20.0, 1e4, 0.0, -0.0])
+    tails = torch.tensor([-1e4, -20.0, -8.0, 8.0, 20.0, 1e4, 0.0, -0.0,
+                          math.inf, -math.inf, math.nan, -math.nan])
     tails = torch.cat([tails, torch.nextafter(tails, tails * 2)])
     special = torch.cat([pts, torch.nextafter(pts, inf),
                          torch.nextafter(pts, -inf), tails])
@@ -711,11 +718,36 @@ def silu_inputs(n: int, gen):
     return x
 
 
-SILU_SIZES = {"layer_breakdown": 1 << 14,
-              "cronet_medium_conv2_4slots": 4 * 10 * 20 * 30 * 32,
-              "bandwidth": 1 << 26}
+# label: (elements, element offset of the view into its buffer)
+SILU_CASES = {"layer_breakdown": (1 << 14, 0),
+              "cronet_medium_conv2_4slots": (4 * 10 * 20 * 30 * 32, 0),
+              "bandwidth": (1 << 26, 0),
+              "odd": ((1 << 14) + 3, 0),
+              "unaligned_view": ((1 << 14) + 3, 1)}
+SILU_TIMED = ("layer_breakdown", "cronet_medium_conv2_4slots", "bandwidth")
 SILU_SOURCES = {"silu_lut": "src/repro/kernels/silu.py:39",
                 "silu_exact": "src/repro/kernels/silu.py:58"}
+
+
+def same_bits(a, b) -> bool:
+    """a and b have one dtype and shape, NaN at the same places and the
+    same bits everywhere else (a NaN's payload is the arithmetic's)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = a.isnan(), b.isnan()
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return bool(torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(bits), b.masked_fill(nb, 0).view(bits)))
+
+
+def silu_case(x, offset: int, dtype, dev):
+    """x (fp32, on the CPU) on the card in ``dtype``, as a view ``offset``
+    elements into its buffer, so that its first element may sit off a
+    16-byte boundary."""
+    import torch
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+    return buf[offset:].copy_(x)
 
 
 def phase_breakdown(ctx):
@@ -723,37 +755,46 @@ def phase_breakdown(ctx):
     Fig 7 layer breakdown (repro_torch.layer_breakdown) at medium."""
     import torch
     import torch.nn.functional as F
-    from repro_torch import kernels, layer_breakdown
+    from repro_torch import kernel_probe, kernels, layer_breakdown
     from repro_torch.kernels import silu
     from repro_torch.timing import graph_ms
     dev = ctx["device"]
     gen = torch.Generator().manual_seed(3)
+    empty = kernel_probe.build(ROOT / "build" / "silu_empty", "silu",
+                               kernel_probe.SILU_HOOKS,
+                               kernel_probe.SILU_BUILDS, [])["empty"]
     pairs = {"silu_lut": (silu.silu_lut, silu.silu_lut_plain, None),
              "silu_exact": (silu.silu_exact, silu.silu_exact_plain, F.silu)}
     report, ok_all = {}, True
-    for label, n in SILU_SIZES.items():
-        x32 = silu_inputs(n, gen).to(dev)
+    for label, (n, offset) in SILU_CASES.items():
+        xs = silu_inputs(n, gen)
         reps = 5 if n > 1 << 22 else 20
         for dname, dt in (("float32", torch.float32),
                           ("bfloat16", torch.bfloat16)):
-            x = x32.to(dt)
+            x = silu_case(xs, offset, dt, dev)
             for name, (kern, plain, lib) in pairs.items():
-                out, ref = kern(x), plain(x)
+                before = kern.launches
+                out = kern(x)
+                launched = kern.launches - before
+                ref = plain(x)
                 sync()
-                err = float((out.float() - ref.float()).abs().max())
-                ok = (out.dtype == dt and out.shape == x.shape
-                      and err <= 1e-6)
+                fin = torch.isfinite(ref)
+                err = float((out.float() - ref.float())[fin].abs().max())
+                ok = same_bits(out, ref) and launched == 1
                 ok_all = ok_all and ok
-                case = {"n": n, "max_abs_err": err, "tol": 1e-6, "ok": ok,
-                        "bitwise": bool(torch.equal(out, ref))}
-                if dname == "float32":
+                case = {"n": n, "offset": offset, "max_abs_err": err,
+                        "tol": "bitwise", "ok": ok, "launches": launched}
+                if label in SILU_TIMED:
                     case.update(
                         ms=graph_ms(lambda: kern(x), reps=reps),
+                        empty_ms=graph_ms(kernel_probe.silu_empty(
+                            empty, name, x), reps=reps),
                         plain_ms=graph_ms(lambda: plain(x), reps=reps),
                         library_ms=(graph_ms(lambda: lib(x), reps=reps)
                                     if lib else None),
-                        **bound(8.0 * n, 4.0 * n, H100_FP32_FLOPS))
-                    case["gb_per_s"] = case["bytes"] / case["ms"] / 1e6
+                        **bound(2.0 * x.element_size() * n, 4.0 * n,
+                                H100_FP32_FLOPS))
+                    case["tb_per_s"] = case["bytes"] / case["ms"] / 1e9
                 report[f"{name}/{label}/{dname}"] = case
     # the path: Fig 7's layer breakdown, both SiLU kernels included
     kernels.reset_launch_counts()
@@ -775,9 +816,9 @@ def phase_breakdown(ctx):
             replaces=replaces, launches=counts[name],
             max_abs_err=max(c["max_abs_err"] for key, c in report.items()
                             if key.startswith(name + "/")),
-            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "bytes", "flops",
-                                          "library_ms")})
+            **{key: main[key] for key in ("ms", "empty_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "bytes",
+                                          "flops", "library_ms")})
     if not ok_all:
         raise AssertionError("a SiLU kernel disagrees with its plain version")
     missing = [n for n in SILU_SOURCES if counts[n] == 0]

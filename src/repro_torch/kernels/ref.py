@@ -92,15 +92,24 @@ def linspace(lo: float, hi: float, n: int, device=None):
                                        device=device)])
 
 
+def silu_lut_index(xf, n_entries: int = 256, lo: float = -8.0,
+                   hi: float = 8.0):
+    """The table entry ``silu_lut`` takes for each fp32 value: the index
+    (x - lo) / (hi - lo) * (n_entries - 1) rounded half to even and
+    clamped to [0, n_entries - 1]. NaN takes entry 0, as XLA's
+    float-to-int conversion (and the CUDA kernel's clamp) gives it."""
+    idx = torch.nan_to_num(torch.round((xf - lo) / (hi - lo)
+                                       * (n_entries - 1)), nan=0.0)
+    return torch.clamp(idx, 0, n_entries - 1).long()
+
+
 def silu_lut(x, n_entries: int = 256, lo: float = -8.0, hi: float = 8.0):
     """Nearest-entry lookup in an ``n_entries`` table of silu over
     [lo, hi]; identity above ``hi``, zero below ``lo``. fp32 arithmetic,
-    output in x's dtype."""
+    output in x's dtype (NaN takes entry 0: ``silu_lut_index``)."""
     table = F.silu(linspace(lo, hi, n_entries, device=x.device))
     xf = x.float()
-    idx = torch.clamp(torch.round((xf - lo) / (hi - lo) * (n_entries - 1)),
-                      0, n_entries - 1).long()
-    val = table[idx]
+    val = table[silu_lut_index(xf, n_entries, lo, hi)]
     val = torch.where(xf > hi, xf, val)
     val = torch.where(xf < lo, torch.zeros_like(val), val)
     return val.to(x.dtype)

@@ -39,25 +39,43 @@ def silu_exact_plain(x):
     return ref.silu_exact(x)
 
 
-def _launch(wrapper, x, *table):
-    """The kernel of ``wrapper`` over the flat CUDA tensor x; counts the
-    launch on ``wrapper``."""
+ARGTYPES = {   # the C entry points' signatures
+    "silu_lut_forward": [ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "silu_exact_forward": [ctypes.c_int] + [ctypes.c_void_p] * 2
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def launch_args(name: str, x: torch.Tensor):
+    """``(entry, args, out, keep)`` for a CUDA tensor x and ``name``
+    "silu_lut" or "silu_exact": the C entry point (``ARGTYPES[entry]``),
+    its arguments, the output they write and the tensors that must outlive
+    the launch."""
     if x.device.type != "cuda":
-        raise ValueError(f"{wrapper.__name__}: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    table = []
+    if name == "silu_lut":
+        table = _tables.get(x.device)
+        if table is None:
+            table = _tables[x.device] = make_table(x.device)
+        table = [table]
+    args = (_build.dtype_code(x), x.data_ptr(),
+            *[t.data_ptr() for t in table], out.data_ptr(), x.numel(),
+            *_build.device_stream(x.device))
+    return f"{name}_forward", args, out, (x, *table)
+
+
+def _launch(wrapper, x):
+    """The kernel of ``wrapper`` over the flat CUDA tensor x; counts the
+    launch on ``wrapper``."""
+    entry, args, out, keep = launch_args(wrapper.__name__, x)
+    if out.numel() == 0:
         return out
-    name = f"{wrapper.__name__}_forward"
-    lib, fn = _build.function(
-        "silu", name, ctypes.c_int,
-        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * len(table)
-        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-           ctypes.c_void_p])
-    err = fn(_build.dtype_code(x), x.data_ptr(),
-             *[t.data_ptr() for t in table], out.data_ptr(), x.numel(),
-             *_build.device_stream(x.device))
-    _build.check(lib, "silu", err)
+    lib, fn = _build.function("silu", entry, ctypes.c_int, ARGTYPES[entry])
+    _build.check(lib, "silu", fn(*args))
     wrapper.launches += 1
     return out
 
@@ -68,10 +86,7 @@ def silu_lut(x: torch.Tensor) -> torch.Tensor:
     (or raise); CPU tensors run ``silu_lut_plain``."""
     if x.device.type == "cpu":
         return silu_lut_plain(x)
-    table = _tables.get(x.device)
-    if table is None:
-        table = _tables[x.device] = make_table(x.device)
-    return _launch(silu_lut, x, table)
+    return _launch(silu_lut, x)
 
 
 def silu_exact(x: torch.Tensor) -> torch.Tensor:

@@ -468,21 +468,29 @@ def test_fusion_path_on_the_card(dev, path):
 
 
 @pytest.mark.parametrize("name", ["silu_lut", "silu_exact"])
-@pytest.mark.parametrize("n", [6000, 768000])
+@pytest.mark.parametrize("n", [6000, 768000, (1 << 14) + 3])
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_silu_kernels_match_plain(dev, name, n, dtype):
-    """Within 1e-6 of the plain version (the same fp32 arithmetic; the
-    table built the same way on the same device); one launch counted."""
+def test_silu_kernels_match_plain(dev, name, n, offset, dtype):
+    """Bitwise equal to the plain version (the same fp32 arithmetic; the
+    table built the same way on the same device), NaN where it has NaN, on
+    a view ``offset`` elements into its buffer (off a 16-byte boundary at
+    1) and at n off a multiple of the 16-byte vector; one launch
+    counted."""
     kern = getattr(silu, name)
     plain = getattr(silu, f"{name}_plain")
-    x = chip_smoke.silu_inputs(n, torch.Generator().manual_seed(n))
-    x = x.to(dev).to(dtype).reshape(60, -1)
+    x = chip_smoke.silu_case(
+        chip_smoke.silu_inputs(n, torch.Generator().manual_seed(n)), offset,
+        dtype, dev)
+    if n % 60 == 0:
+        x = x.reshape(60, -1)
+    assert x.data_ptr() % 16 == (offset * x.element_size()) % 16
     before = kern.launches
     out = kern(x)
     assert kern.launches == before + 1
     ref_ = plain(x)
     assert out.dtype == dtype and out.shape == x.shape
-    torch.testing.assert_close(out.float(), ref_.float(), rtol=0, atol=1e-6)
+    assert chip_smoke.same_bits(out, ref_)
 
 
 FLASH_CASES = {   # (B, Sq, Sk, Hq, Hkv, D, dtype, input scale)

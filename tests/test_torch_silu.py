@@ -87,6 +87,45 @@ def test_silu_lut_matches_pallas(dtype):
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
 
 
+# NaN of both signs, the infinities and the signed zeros: XLA turns NaN
+# into index 0, so both kernels (and the port's plain version) take
+# table[0] = silu(-8) for it
+SPECIALS = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0],
+                    np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_lut_nan_matches_pallas(dtype):
+    jx, tx = _pair(SPECIALS, dtype)
+    out = silu.silu_lut(tx)
+    want = np.asarray(jsilu.silu_lut(jx, interpret=True), np.float32)
+    finite = np.isfinite(want)        # inf passes the identity tail
+    _close(out[torch.from_numpy(finite)], want[finite], dtype)
+    np.testing.assert_array_equal(out.float().numpy()[~finite],
+                                  want[~finite])
+    jf = jx.astype(jnp.float32)
+    jidx = jnp.clip(jnp.round((jf - jsilu.LO) / (jsilu.HI - jsilu.LO)
+                              * (jsilu.N_ENTRIES - 1)), 0,
+                    jsilu.N_ENTRIES - 1).astype(jnp.int32)
+    tidx = ref.silu_lut_index(tx.float(), silu.N_ENTRIES, silu.LO, silu.HI)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    assert tidx[0] == 0 and tidx[1] == 0
+    table0 = silu.make_table()[0].to(tx.dtype)
+    assert out[0] == table0 and out[1] == table0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_exact_nan_matches_pallas(dtype):
+    """NaN stays NaN, inf stays inf, -inf gives NaN, in both packages."""
+    jx, tx = _pair(SPECIALS, dtype)
+    got = silu.silu_exact(tx).float().numpy()
+    want = np.asarray(jsilu.silu_exact(jx, interpret=True), np.float32)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -8
+    np.testing.assert_allclose(got, want, rtol=tol, atol=1e-6,
+                               equal_nan=True)
+
+
 def test_silu_lut_table_matches_jax():
     """The grid is jnp.linspace's value for value; the table differs only by
     the two frameworks' silu."""
