@@ -760,9 +760,9 @@ def phase_breakdown(ctx):
     from repro_torch.timing import graph_ms
     dev = ctx["device"]
     gen = torch.Generator().manual_seed(3)
-    empty = kernel_probe.build(ROOT / "build" / "silu_empty", "silu",
-                               kernel_probe.SILU_HOOKS,
-                               kernel_probe.SILU_BUILDS, [])["empty"]
+    empty = kernel_probe.build(
+        ROOT / "build" / "silu_empty", "silu", kernel_probe.SILU_HOOKS,
+        {"empty": kernel_probe.SILU_BUILDS["empty"]}, [])["empty"]
     pairs = {"silu_lut": (silu.silu_lut, silu.silu_lut_plain, None),
              "silu_exact": (silu.silu_exact, silu.silu_exact_plain, F.silu)}
     report, ok_all = {}, True
@@ -787,7 +787,7 @@ def phase_breakdown(ctx):
                 if label in SILU_TIMED:
                     case.update(
                         ms=graph_ms(lambda: kern(x), reps=reps),
-                        empty_ms=graph_ms(kernel_probe.silu_empty(
+                        empty_ms=graph_ms(kernel_probe.silu_call(
                             empty, name, x), reps=reps),
                         plain_ms=graph_ms(lambda: plain(x), reps=reps),
                         library_ms=(graph_ms(lambda: lib(x), reps=reps)

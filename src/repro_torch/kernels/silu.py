@@ -1,9 +1,13 @@
 """``silu_lut`` and ``silu_exact``: two elementwise CUDA kernels.
 
 Replace the Pallas kernels ``repro/kernels/silu.py::silu_lut`` and
-``::silu_exact``. ``csrc/silu.cu`` walks the flat tensor with a grid-stride
-loop; the LUT kernel keeps the 256-entry table in shared memory. See that
-file for the design. Each wrapper counts its own launches.
+``::silu_exact``. ``csrc/silu.cu`` walks the flat tensor in 16-byte vectors
+(4 fp32 or 8 bf16 elements) under the plan ``silu_plan`` computes here: a
+scalar head up to x's first 16-byte boundary, the vector body walked by one
+wave of blocks, a scalar tail. See that file for the design. The output is
+placed at x's offset from a 16-byte boundary, so that x and out share the
+plan; no input is copied (a non-contiguous x is made contiguous first).
+Each wrapper counts its own launches.
 
 Plain versions: ``ref.silu_lut`` (whose table is ``make_table``'s, built
 the same way on the same device) and ``ref.silu_exact``. They run only for
@@ -12,7 +16,7 @@ CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,32 +43,101 @@ def silu_exact_plain(x):
     return ref.silu_exact(x)
 
 
+THREADS = 256
+BLOCKS_PER_SM = 4      # __launch_bounds__(256, 4) in csrc/silu.cu
+VPTS = (1, 2, 4)       # vectors a thread loads a pass: the kernel's cases
+
+
+class SiluPlan(NamedTuple):
+    """Elements [0, head) and the last ``tail`` are scalar; the ``nvec``
+    16-byte vectors of ``vec`` elements between them are walked by
+    ``blocks`` blocks of ``threads``, each thread loading ``vpt`` vectors
+    ``threads`` apart a pass, passes ``blocks * threads * vpt`` vectors
+    apart. Block 0's first ``head + tail`` threads take the scalars."""
+    vec: int
+    head: int
+    nvec: int
+    tail: int
+    blocks: int
+    threads: int
+    vpt: int
+
+
+def silu_plan(n: int, dtype: torch.dtype, sm_count: int,
+              ptr_offset: int = 0) -> SiluPlan:
+    """The launch plan of ``csrc/silu.cu`` for n elements of ``dtype``
+    (fp32 or bf16) whose first lies ``ptr_offset`` bytes past a 16-byte
+    boundary, on a card of ``sm_count`` SMs.
+
+    The grid is one wave (``BLOCKS_PER_SM`` blocks an SM at most): as many
+    blocks as the vectors fill at one vector a thread, then, once every
+    block is resident, more vectors a thread (up to 4 in flight) before the
+    blocks walk more than one pass."""
+    esize = {torch.float32: 4, torch.bfloat16: 2}.get(dtype)
+    if esize is None:
+        raise TypeError(f"silu_plan: dtype {dtype}: fp32 or bf16 only")
+    if n < 1 or ptr_offset % esize or not 0 <= ptr_offset < 16:
+        raise ValueError(f"silu_plan: n {n}, pointer offset {ptr_offset}")
+    vec = 16 // esize
+    head = min(n, (16 - ptr_offset) % 16 // esize)
+    nvec = (n - head) // vec
+    tail = n - head - nvec * vec
+    most = sm_count * BLOCKS_PER_SM
+    need = -(-nvec // (THREADS * most))          # vectors a thread, one pass
+    vpt = next((v for v in VPTS if v >= need), VPTS[-1])
+    blocks = max(1, min(most, -(-nvec // (THREADS * vpt))))
+    return SiluPlan(vec, head, nvec, tail, blocks, THREADS, vpt)
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, queried once per device."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
+PLAN_ARGS = [ctypes.c_longlong] + [ctypes.c_int] * 5   # n, head, tail, ...
 ARGTYPES = {   # the C entry points' signatures
-    "silu_lut_forward": [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-    "silu_exact_forward": [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "silu_lut_forward": [ctypes.c_int] + [ctypes.c_void_p] * 3 + PLAN_ARGS
+    + [ctypes.c_int, ctypes.c_void_p],
+    "silu_exact_forward": [ctypes.c_int] + [ctypes.c_void_p] * 2 + PLAN_ARGS
+    + [ctypes.c_int, ctypes.c_void_p],
 }
 
 
-def launch_args(name: str, x: torch.Tensor):
+def launch_args(name: str, x: torch.Tensor, plan: SiluPlan = None):
     """``(entry, args, out, keep)`` for a CUDA tensor x and ``name``
     "silu_lut" or "silu_exact": the C entry point (``ARGTYPES[entry]``),
-    its arguments, the output they write and the tensors that must outlive
-    the launch."""
+    its arguments under ``plan`` (default ``silu_plan``'s), the output
+    they write and the tensors that must outlive the launch."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    code = _build.dtype_code(x)
     x = x.contiguous()
-    out = torch.empty_like(x)
+    n, esize = x.numel(), x.element_size()
+    # out at x's offset from a 16-byte boundary: x's vectors are out's
+    buf = torch.empty(n + 16 // esize - 1, dtype=x.dtype, device=x.device)
+    shift = (x.data_ptr() - buf.data_ptr()) % 16 // esize
+    out = buf[shift:shift + n].view(x.shape)
+    if n == 0:
+        return f"{name}_forward", (), out, (x,)
+    if plan is None:
+        plan = silu_plan(n, x.dtype, sm_count(x.device), x.data_ptr() % 16)
     table = []
     if name == "silu_lut":
         table = _tables.get(x.device)
         if table is None:
             table = _tables[x.device] = make_table(x.device)
         table = [table]
-    args = (_build.dtype_code(x), x.data_ptr(),
-            *[t.data_ptr() for t in table], out.data_ptr(), x.numel(),
-            *_build.device_stream(x.device))
+    args = (code, x.data_ptr(), *[t.data_ptr() for t in table],
+            out.data_ptr(), n, plan.head, plan.tail, plan.blocks,
+            plan.threads, plan.vpt, *_build.device_stream(x.device))
     return f"{name}_forward", args, out, (x, *table)
 
 
