@@ -698,8 +698,9 @@ def silu_inputs(n: int, gen):
     lookup can go wrong: every table point and every midpoint between two
     of them (the arithmetic midpoint and the fp32 value nearest the exact
     tie of the index formula), each with its two neighbouring floats, the
-    tails on both sides of -8 and 8, the infinities and NaN of both
-    signs."""
+    tails on both sides of -8 and 8, the bounds of the exact kernel's fast
+    quotient (x near -22.18, |x| at 2^-64 and 2^64, subnormals), the
+    infinities and NaN of both signs."""
     import torch
     from repro_torch.kernels import ref, silu
     grid = ref.linspace(silu.LO, silu.HI, silu.N_ENTRIES)
@@ -708,8 +709,10 @@ def silu_inputs(n: int, gen):
             * (silu.HI - silu.LO) / (silu.N_ENTRIES - 1) + silu.LO).float()
     pts = torch.cat([grid, mids, ties])
     inf = torch.full_like(pts, math.inf)
-    tails = torch.tensor([-1e4, -20.0, -8.0, 8.0, 20.0, 1e4, 0.0, -0.0,
-                          math.inf, -math.inf, math.nan, -math.nan])
+    tails = torch.tensor([-1e4, -22.5, -22.180710, -22.0, -20.0, -8.0, 8.0,
+                          20.0, 1e4, 0.0, -0.0, 2.0 ** -64, -2.0 ** -64,
+                          2.0 ** 64, -2.0 ** 64, 1e-40, -1e-40, math.inf,
+                          -math.inf, math.nan, -math.nan])
     tails = torch.cat([tails, torch.nextafter(tails, tails * 2)])
     special = torch.cat([pts, torch.nextafter(pts, inf),
                          torch.nextafter(pts, -inf), tails])
