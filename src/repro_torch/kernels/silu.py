@@ -43,9 +43,9 @@ def silu_exact_plain(x):
     return ref.silu_exact(x)
 
 
-THREADS = 256
-BLOCKS_PER_SM = 4      # __launch_bounds__(256, 4) in csrc/silu.cu
-VPTS = (1, 2, 4)       # vectors a thread loads a pass: the kernel's cases
+BLOCK_ELEMS = 1024     # a block's elements at a vector a thread
+SM_THREADS = 1024      # a wave's threads an SM: __launch_bounds__(256, 4)
+VPTS = (1, 2, 4)       # vectors a thread: the kernel's cases
 
 
 class SiluPlan(NamedTuple):
@@ -69,11 +69,13 @@ def silu_plan(n: int, dtype: torch.dtype, sm_count: int,
     (fp32 or bf16) whose first lies ``ptr_offset`` bytes past a 16-byte
     boundary, on a card of ``sm_count`` SMs.
 
-    One pass: while the vectors fit one wave (``BLOCKS_PER_SM`` blocks an
-    SM) at 4 vectors a thread, the fewest vectors a thread (1, 2, 4) that
-    fit it, over as many blocks as they fill; past that, 4 vectors a thread
-    over as many blocks as they fill (``kernel_probe --silu``: at 2^26 fp32
-    that is 5% faster than one wave walking passes)."""
+    Blocks of ``BLOCK_ELEMS`` elements at a vector a thread (256 fp32 or
+    128 bf16 threads: at 2^14 both spread over 16 SMs). One pass: while
+    the vectors fit one wave (``SM_THREADS`` threads an SM) at 4 vectors a
+    thread, the fewest vectors a thread (1, 2, 4) that fit it, over as many
+    blocks as they fill; past that, 4 vectors a thread over as many blocks
+    as they fill (``kernel_probe --silu``: at 2^26 fp32 that is 5% faster
+    than one wave walking passes)."""
     esize = {torch.float32: 4, torch.bfloat16: 2}.get(dtype)
     if esize is None:
         raise TypeError(f"silu_plan: dtype {dtype}: fp32 or bf16 only")
@@ -83,10 +85,11 @@ def silu_plan(n: int, dtype: torch.dtype, sm_count: int,
     head = min(n, (16 - ptr_offset) % 16 // esize)
     nvec = (n - head) // vec
     tail = n - head - nvec * vec
-    wave = sm_count * BLOCKS_PER_SM * THREADS       # threads of one wave
+    threads = BLOCK_ELEMS // vec
+    wave = sm_count * SM_THREADS                    # threads of one wave
     vpt = next((v for v in VPTS if nvec <= wave * v), VPTS[-1])
-    blocks = max(1, -(-nvec // (THREADS * vpt)))
-    return SiluPlan(vec, head, nvec, tail, blocks, THREADS, vpt)
+    blocks = max(1, -(-nvec // (threads * vpt)))
+    return SiluPlan(vec, head, nvec, tail, blocks, threads, vpt)
 
 
 _sm_counts: Dict[int, int] = {}

@@ -68,7 +68,8 @@ def check_arithmetic(plan, n, dtype, off, sms):
     assert plan.blocks >= 1
     assert (plan.blocks - 1) * per_block < max(plan.nvec, 1)   # none idle
     assert plan.blocks * per_block >= plan.nvec                # one pass
-    wave = sms * silu.BLOCKS_PER_SM
+    assert plan.threads * plan.vec == silu.BLOCK_ELEMS
+    wave = sms * silu.SM_THREADS // plan.threads           # blocks of a wave
     if plan.nvec <= wave * plan.threads * silu.VPTS[-1]:
         assert plan.blocks <= wave                             # one wave
         assert plan.vpt == min(v for v in silu.VPTS
@@ -88,11 +89,13 @@ def test_plan_covers_every_element_once(case):
 
 
 def test_plan_is_one_wave_at_the_layer_breakdown_size():
-    """2^14 fp32 at 132 SMs: one wave, one vector a thread; 2^26: 4
-    vectors a thread over as many blocks as they fill."""
-    plan = silu.silu_plan(1 << 14, torch.float32, 132, 0)
-    assert plan.blocks <= 132 * silu.BLOCKS_PER_SM
-    assert plan.vpt == 1 and plan.blocks == 16
+    """2^14 at 132 SMs: one wave, one vector a thread, 16 blocks in fp32
+    and bf16; 2^26: 4 vectors a thread over as many blocks as they
+    fill."""
+    for dt in (torch.float32, torch.bfloat16):
+        plan = silu.silu_plan(1 << 14, dt, 132, 0)
+        assert plan.blocks * plan.threads <= 132 * silu.SM_THREADS
+        assert plan.vpt == 1 and plan.blocks == 16
     big = silu.silu_plan(1 << 26, torch.float32, 132, 0)
     assert big.vpt == 4 and big.blocks == (1 << 24) // 1024
 
