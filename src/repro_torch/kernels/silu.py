@@ -73,9 +73,11 @@ def silu_plan(n: int, dtype: torch.dtype, sm_count: int,
     128 bf16 threads: at 2^14 both spread over 16 SMs). One pass: while
     the vectors fit one wave (``SM_THREADS`` threads an SM) at 4 vectors a
     thread, the fewest vectors a thread (1, 2, 4) that fit it, over as many
-    blocks as they fill; past that, 4 vectors a thread over as many blocks
-    as they fill (``kernel_probe --silu``: at 2^26 fp32 that is 5% faster
-    than one wave walking passes)."""
+    blocks as they fill; past that, one vector a thread over as many
+    blocks as they fill (``kernel_probe --silu``: at 2^26 fp32 that is 5%
+    faster than one wave walking passes and 0.5% faster than 4 vectors a
+    thread; at 768,000, 1.4 waves at one vector a thread, one wave at 2 is
+    4-15% faster)."""
     esize = {torch.float32: 4, torch.bfloat16: 2}.get(dtype)
     if esize is None:
         raise TypeError(f"silu_plan: dtype {dtype}: fp32 or bf16 only")
@@ -87,7 +89,7 @@ def silu_plan(n: int, dtype: torch.dtype, sm_count: int,
     tail = n - head - nvec * vec
     threads = BLOCK_ELEMS // vec
     wave = sm_count * SM_THREADS                    # threads of one wave
-    vpt = next((v for v in VPTS if nvec <= wave * v), VPTS[-1])
+    vpt = next((v for v in VPTS if nvec <= wave * v), 1)
     blocks = max(1, -(-nvec // (threads * vpt)))
     return SiluPlan(vec, head, nvec, tail, blocks, threads, vpt)
 

@@ -75,7 +75,7 @@ def check_arithmetic(plan, n, dtype, off, sms):
         assert plan.vpt == min(v for v in silu.VPTS
                                if plan.nvec <= wave * plan.threads * v)
     else:
-        assert plan.vpt == silu.VPTS[-1]
+        assert plan.vpt == 1
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
@@ -90,14 +90,14 @@ def test_plan_covers_every_element_once(case):
 
 def test_plan_is_one_wave_at_the_layer_breakdown_size():
     """2^14 at 132 SMs: one wave, one vector a thread, 16 blocks in fp32
-    and bf16; 2^26: 4 vectors a thread over as many blocks as they
+    and bf16; 2^26: one vector a thread over as many blocks as they
     fill."""
     for dt in (torch.float32, torch.bfloat16):
         plan = silu.silu_plan(1 << 14, dt, 132, 0)
         assert plan.blocks * plan.threads <= 132 * silu.SM_THREADS
         assert plan.vpt == 1 and plan.blocks == 16
     big = silu.silu_plan(1 << 26, torch.float32, 132, 0)
-    assert big.vpt == 4 and big.blocks == (1 << 24) // 1024
+    assert big.vpt == 1 and big.blocks == (1 << 24) // 256
 
 
 @pytest.mark.parametrize("n", [3, 4095, (1 << 14) + 3, 100003])
