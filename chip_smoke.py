@@ -39,7 +39,9 @@ Phases, one JSON line each on stdout:
      and on a view one element into its buffer, with the tails, the
      infinities, NaN of both signs, every table point and every midpoint
      (and their neighbouring floats) among the inputs; the first three
-     timed by graph replay beside an ``empty`` build of csrc/silu.cu at
+     timed by graph replay on normal draws (scale 4: the special values
+     put tens of full IEEE divisions into a few threads, in these kernels
+     and in F.silu alike) beside an ``empty`` build of csrc/silu.cu at
      the same grid (the launch floor), the plain version and F.silu; then
      repro_torch.layer_breakdown.run at medium (paper Fig 7, bf16), which
      must launch both SiLU kernels and each convolution wrapper's
@@ -771,10 +773,12 @@ def phase_breakdown(ctx):
     report, ok_all = {}, True
     for label, (n, offset) in SILU_CASES.items():
         xs = silu_inputs(n, gen)
+        xt = torch.randn((n,), generator=gen) * 4     # timed
         reps = 5 if n > 1 << 22 else 20
         for dname, dt in (("float32", torch.float32),
                           ("bfloat16", torch.bfloat16)):
             x = silu_case(xs, offset, dt, dev)
+            t = silu_case(xt, offset, dt, dev)
             for name, (kern, plain, lib) in pairs.items():
                 before = kern.launches
                 out = kern(x)
@@ -789,11 +793,11 @@ def phase_breakdown(ctx):
                         "tol": "bitwise", "ok": ok, "launches": launched}
                 if label in SILU_TIMED:
                     case.update(
-                        ms=graph_ms(lambda: kern(x), reps=reps),
+                        ms=graph_ms(lambda: kern(t), reps=reps),
                         empty_ms=graph_ms(kernel_probe.silu_call(
-                            empty, name, x), reps=reps),
-                        plain_ms=graph_ms(lambda: plain(x), reps=reps),
-                        library_ms=(graph_ms(lambda: lib(x), reps=reps)
+                            empty, name, t), reps=reps),
+                        plain_ms=graph_ms(lambda: plain(t), reps=reps),
+                        library_ms=(graph_ms(lambda: lib(t), reps=reps)
                                     if lib else None),
                         **bound(2.0 * x.element_size() * n, 4.0 * n,
                                 H100_FP32_FLOPS))
