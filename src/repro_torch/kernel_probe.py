@@ -2,7 +2,8 @@
 and the fused sLSTM goes, on one NVIDIA GPU.
 
     PYTHONPATH=src python -m repro_torch.kernel_probe [--out FILE]
-        [--cronet] [--slstm] [--flash-simt] [--maxpool] [--cronet-kernels]
+        [--cronet] [--slstm] [--flash-simt] [--maxpool] [--silu]
+        [--cronet-kernels]
         [--cg-wrapper-only]
 
 GEMV (csrc/gemm.cu): every GEMM of one CRONet medium ``l1`` forward, fp32
@@ -39,7 +40,11 @@ flash kernel (``--flash-simt``) at qwen2.5-32b's widths in fp32, S 1024,
 non-causal and causal, with its K/V staging, score products, softmax or
 P.V products cut, and the SM cycles of each phase a kv tile; then the
 wrapper beside SDPA at the other configurations' widths in fp32 and bf16.
-``--maxpool`` times maxpool2d through its wrapper by graph replay.
+``--maxpool`` times maxpool2d through its wrapper by graph replay;
+``--silu`` times silu_lut and silu_exact through their wrappers beside an
+``empty`` build of csrc/silu.cu at the same grid (the launch floor), the
+table read through the read-only cache, evict-first loads and stores,
+nvcc's own division, the plans silu_plan's was chosen over, and F.silu.
 
 Outputs of the cut builds are not results; only their times are read. The
 phases are cut by editing a copy of each source at fixed anchors: an anchor
@@ -101,6 +106,36 @@ CG_HOOKS += [
      "#endif\n  if (tid == 0) its_out[b] = its;"),
 ]
 GEMM_BUILDS = {"full": [], "empty": ["EMPTY"]}
+# silu_lut / silu_exact (csrc/silu.cu): an ``empty`` build whose kernel
+# returns at once, launched with the wrappers' arguments (the launch floor
+# of that grid); ``ldg_table``: the LUT read from the table in device
+# memory through the read-only cache, not staged in shared memory;
+# ``streaming``: the vectors loaded and stored with the evict-first hints
+# (__ldcs / __stcs); ``nvcc_div``: silu_exact with nvcc's own division for
+# every element (a range check and a branch each)
+SILU_HOOKS = [
+    ("  constexpr int kVec = 16 / sizeof(T);\n",
+     "#ifdef EMPTY\n  if (nvec >= 0) return;\n#endif\n"
+     "  constexpr int kVec = 16 / sizeof(T);\n"),
+    ("  if (LUT) {\n    for (int k = tid; k < kEntries; k += blockDim.x) "
+     "tab[k] = __ldg(table + k);\n    __syncthreads();\n  }\n",
+     "#ifdef LDG_TABLE\n#define tab table\n#else\n"
+     "  if (LUT) {\n    for (int k = tid; k < kEntries; k += blockDim.x) "
+     "tab[k] = __ldg(table + k);\n    __syncthreads();\n  }\n#endif\n"),
+    ("r[j] = __ldg(xv + i + j * step);",
+     "r[j] = LOAD(xv + i + j * step);"),
+    ("ov[i + j * step] = pack(v, tag);",
+     "STORE(ov + i + j * step, pack(v, tag));"),
+    ("  return m >= 0x1p-64f && m <= 0x1p64f && d <= 0x1p32f;\n",
+     "#ifdef NVCC_DIV\n  if (m >= 0.0f) return false;\n#endif\n"
+     "  return m >= 0x1p-64f && m <= 0x1p64f && d <= 0x1p32f;\n"),
+    ("namespace {\n",
+     "#ifdef STREAMING\n#define LOAD __ldcs\n#define STORE __stcs\n#else\n"
+     "#define LOAD __ldg\n#define STORE(p, v) (*(p) = (v))\n#endif\n"
+     "namespace {\n"),
+]
+SILU_BUILDS = {"empty": ["EMPTY"], "ldg_table": ["LDG_TABLE"],
+               "streaming": ["STREAMING"], "nvcc_div": ["NVCC_DIV"]}
 CG_BUILDS = {"full": [], "no_stencil": ["NO_STENCIL"], "no_fold": ["NO_FOLD"],
              "no_div": ["NO_DIV"],
              "skeleton": ["NO_STENCIL", "NO_FOLD", "NO_DIV"],
@@ -798,6 +833,89 @@ def probe_maxpool():
     return report
 
 
+def silu_call(lib, name: str, x, plan=None):
+    """A call of ``lib``'s ``name`` kernel (a build of csrc/silu.cu) with
+    the arguments the wrapper would pass for x under ``plan`` (default
+    ``silu_plan``'s), on the current stream."""
+    import torch
+    from repro_torch.kernels import silu
+    entry, args, _, keep = silu.launch_args(name, x, plan)
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = silu.ARGTYPES[entry]
+
+    def call():
+        err = fn(*args[:-1], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"kernel_probe: silu error {err}")
+    call.keep = keep        # the tensors the arguments point into
+    return call
+
+
+def _silu_plan_variants(plan):
+    """The plans silu_plan's was chosen over: the other vectors a thread
+    (1, 2 or 4) and the other block sizes (64, 128 or 256 threads), each
+    over as many blocks as the vectors fill."""
+    from repro_torch.kernels import silu
+    out = {f"vpt{v}": plan._replace(vpt=v, blocks=max(
+        1, -(-plan.nvec // (plan.threads * v)))) for v in silu.VPTS
+        if v != plan.vpt}
+    out.update({f"threads{t}": plan._replace(threads=t, blocks=max(
+        1, -(-plan.nvec // (t * plan.vpt)))) for t in (64, 128, 256)
+        if t != plan.threads})
+    return out
+
+
+def probe_silu(out_dir: Path):
+    """silu_lut and silu_exact through their wrappers, the same kernels
+    under the plans silu_plan's was chosen over, the ``empty``,
+    ``ldg_table`` / ``nvcc_div`` and ``streaming`` builds of csrc/silu.cu
+    launched with the wrappers' arguments, and F.silu, at chip_smoke's
+    timed SiLU sizes, fp32 and bf16, on normal draws (scale 4): us by graph
+    replay, and the rate in TB/s (one read and one write an element)."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke
+    from repro_torch.kernels import _build, silu
+    from repro_torch.timing import graph_ms
+    libs = build(out_dir, "silu", SILU_HOOKS, SILU_BUILDS, [])
+    libs["wrapper"] = _build.load("silu")
+    dev = torch.device("cuda")
+    sms = silu.sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    report = {"sm_count": sms}
+    for label in chip_smoke.SILU_TIMED:
+        n = chip_smoke.SILU_CASES[label][0]
+        reps, replays = (5, 5) if n > 1 << 22 else (50, 10)
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn((n,), generator=gen, device=dev) * 4).to(dt)
+            nbytes = 2 * n * x.element_size()
+            plan = silu.silu_plan(n, dt, sms, x.data_ptr() % 16)
+            row = {"n": n, "plan": plan._asdict()}
+            for name in ("silu_lut", "silu_exact"):
+                wrapper = getattr(silu, name)
+                us = {"": 1e3 * graph_ms(lambda: wrapper(x), reps=reps,
+                                         replays=replays)}
+                for b in ("empty", "streaming") + (
+                        ("ldg_table",) if name == "silu_lut" else
+                        ("nvcc_div",)):
+                    us[f"_{b}"] = 1e3 * graph_ms(
+                        silu_call(libs[b], name, x), reps=reps,
+                        replays=replays)
+                for pname, p in _silu_plan_variants(plan).items():
+                    us[f"_{pname}"] = 1e3 * graph_ms(
+                        silu_call(libs["wrapper"], name, x, p), reps=reps,
+                        replays=replays)
+                for k, t in us.items():
+                    row[f"{name}{k}_us"] = t
+                row[f"{name}_tb_per_s"] = nbytes / us[""] / 1e6
+            row["f_silu_us"] = 1e3 * graph_ms(lambda: F.silu(x), reps=reps,
+                                              replays=replays)
+            row["f_silu_tb_per_s"] = nbytes / row["f_silu_us"] / 1e6
+            report[f"{label}/{str(dt).split('.')[-1]}"] = row
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -812,6 +930,9 @@ def main():
                     help="only maxpool2d by graph replay (any tree's port)")
     ap.add_argument("--flash-simt", action="store_true",
                     help="only the SIMT flash kernel, by phase of a tile")
+    ap.add_argument("--silu", action="store_true",
+                    help="only silu_lut / silu_exact beside their empty "
+                         "build and F.silu (any tree's port)")
     ap.add_argument("--cronet-kernels", action="store_true",
                     help="only the device kernels of a cronet_fused call")
     args = ap.parse_args()
@@ -830,7 +951,8 @@ def main():
     elif args.cronet_kernels:
         text = json.dumps({"card": smi,
                            "cronet_kernels_per_call": cronet_kernels_per_call()})
-    elif args.cronet or args.slstm or args.flash_simt or args.maxpool:
+    elif (args.cronet or args.slstm or args.flash_simt or args.maxpool
+          or args.silu):
         rep = {"card": smi}
         if args.cronet:
             rep["cronet"] = probe_cronet(out_dir)
@@ -840,6 +962,8 @@ def main():
             rep["flash_simt"] = probe_flash_simt(out_dir)
         if args.maxpool:
             rep["maxpool"] = probe_maxpool()
+        if args.silu:
+            rep["silu"] = probe_silu(out_dir)
         text = json.dumps(rep)
     else:
         text = json.dumps({"card": smi, "gemm": probe_gemm(out_dir),

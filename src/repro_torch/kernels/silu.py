@@ -77,7 +77,7 @@ def silu_plan(n: int, dtype: torch.dtype, sm_count: int,
     blocks as they fill (``kernel_probe --silu``: at 2^26 fp32 that is 5%
     faster than one wave walking passes and 0.5% faster than 4 vectors a
     thread; at 768,000, 1.4 waves at one vector a thread, one wave at 2 is
-    4-15% faster)."""
+    3-15% faster)."""
     esize = {torch.float32: 4, torch.bfloat16: 2}.get(dtype)
     if esize is None:
         raise TypeError(f"silu_plan: dtype {dtype}: fp32 or bf16 only")
