@@ -66,11 +66,24 @@ Phases, one JSON line each on stdout:
      8 requests of 20 iterations (the MBB case plus off-distribution point
      loads) once with error_threshold=0.1 and once with 1e9; cronet_fused
      and solve_b_fused must be launched by that phase.
-  7. contracts — one tick at width 4 equals the same slots' tick at width 2
+  7. gateway — CRONet medium's random weights v1 (seed 0) and v2 (seed 1)
+     registered in a fresh ModelRegistry and loaded back onto the card
+     (fp32 equal, the bf16 load equal to .to(bfloat16)); then
+     TopoGateway.from_registry(reg, "v1", slots=4) at threshold 0.1
+     serves serving's 8 requests on 30x20 and 4 on 60x20 (large's mesh),
+     with canary("v2", fraction=0.5) on 30x20 started part-way and
+     promoted after; every density finite, every completion tagged with
+     its engine's version, the 30x20 completions of each version bitwise
+     equal to a dedicated engine's run of them, and the 60x20 bucket
+     evicted (memory_allocated must drop) and rebuilt to the same bits;
+     problems/s and p50/p99 beside the serving phase's; cronet_fused and
+     solve_b_fused must be launched by that phase.
+  8. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
-drives its path: serving for cronet_fused and solve_b_fused, fusion (b)
+drives its path: serving for cronet_fused and solve_b_fused (the gateway
+phase's as gateway_launches), fusion (b)
 for the per-op kernels, breakdown's layer_breakdown.run for the SiLU
 kernels, lm_kernels' counted calls for the two flash kernels and
 slstm_fused; the conv2d and conv3d rows also carry kernel_for's split:
@@ -1166,10 +1179,180 @@ def phase_serving(ctx):
     counts = kernels.launch_counts()
     for name in ("cronet_fused", "solve_b_fused"):
         ctx["rows"][name]["launches"] = counts[name]
+    ctx["serving"] = runs["0.1"]
     emit({"phase": "serving", "mesh": f"{cfg.nelx}x{cfg.nely}", "slots": 4,
           "requests": 8, "n_iter": 20, "runs": runs, "launches": counts})
     if sum(runs["1000000000.0"]["cronet_iters"]) == 0:
         raise AssertionError("surrogate never accepted at threshold 1e9")
+    if min(counts["cronet_fused"], counts["solve_b_fused"]) == 0:
+        raise AssertionError(f"a kernel was not launched: {counts}")
+
+
+def same_params(a, b) -> bool:
+    """Two parameter trees hold the same dtypes and bits."""
+    import torch
+    return all(a[p][n].dtype == b[p][n].dtype and torch.equal(a[p][n], b[p][n])
+               for p in a for n in a[p])
+
+
+def phase_gateway(ctx):
+    """The registry and the gateway at medium's full width: a round trip
+    through a fresh registry, two meshes behind one queue, a canary on
+    30x20 promoted part-way through, and an evicted 60x20 bucket rebuilt.
+    Both serving kernels must be launched in this phase."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common import init_params
+    from repro_torch.configs.cronet import get_cronet_config
+    from repro_torch.fea import fea2d
+    from repro_torch.serve import (ModelRegistry, TopoGateway, TopoRequest,
+                                   TopoServingEngine)
+    from repro_torch.serve.types import pool_stats
+    dev, cfg = ctx["device"], ctx["cfg"]
+    small_mesh = (cfg.nelx, cfg.nely)
+    big = get_cronet_config("large")
+    big_mesh = (big.nelx, big.nely)
+    n_iter, thr = 20, 0.1
+    root = tempfile.mkdtemp(prefix="chip_smoke_registry_")
+    try:
+        # -- registry round trip: fp32 exact, the bf16 deploy cast exact
+        versions = {"v1": init_params(cfg, seed=0, device=dev,
+                                      dtype="float32"),
+                    "v2": init_params(cfg, seed=1, device=dev,
+                                      dtype="float32")}
+        reg = ModelRegistry(root)
+        for tag, params in versions.items():
+            reg.register(params, cfg, U_SCALE, tag=tag)
+        roundtrip = {}
+        for tag, params in versions.items():
+            f32, rec = reg.load(tag, device=dev)
+            b16, _ = reg.load(tag, dtype="bfloat16", device=dev)
+            want16 = {p: {n: w.to(torch.bfloat16) for n, w in ws.items()}
+                      for p, ws in params.items()}
+            roundtrip[tag] = {"float32": same_params(f32, params),
+                              "bfloat16": same_params(b16, want16),
+                              "on_device": all(
+                                  t.device.type == dev.type
+                                  for ws in f32.values() for t in ws.values()),
+                              "weights": sum(t.numel() for ws in f32.values()
+                                             for t in ws.values())}
+        if not all(all(v.values()) for v in roundtrip.values()):
+            raise AssertionError(f"registry round trip: {roundtrip}")
+
+        # -- the gateway: two meshes, a canary promoted part-way through
+        small = problems(fea2d, cfg, 8)
+        large = problems(fea2d, big, 4, seed=1)
+        kernels.reset_launch_counts()
+        gw = TopoGateway.from_registry(reg, "v1", slots=4, device=dev,
+                                       error_threshold=thr, max_pending=64)
+        t0 = time.perf_counter()
+        futs = []
+
+        def submit(mesh, prob):
+            futs.append(gw.submit(TopoRequest(uid=len(futs), problem=prob,
+                                              n_iter=n_iter)))
+
+        for i in range(4):
+            submit(small_mesh, small[i])
+            if i < 2:
+                submit(big_mesh, large[i])
+        gw.canary("v2", fraction=0.5, mesh=small_mesh, auto_rollback=False)
+        for i in range(4, 8):
+            submit(small_mesh, small[i])
+            if i < 6:
+                submit(big_mesh, large[i - 2])
+        done = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        promoted = gw.promote(mesh=small_mesh, timeout=300)
+        # -- eviction of the 60x20 bucket and its lazy rebuild
+        if not gw.drain(timeout=300):
+            raise AssertionError("the gateway did not drain")
+        sync()
+        mem_before = torch.cuda.memory_allocated(dev)
+        if not gw.evict_bucket(big_mesh, timeout=300):
+            raise AssertionError("no 60x20 bucket to evict")
+        sync()
+        mem_after = torch.cuda.memory_allocated(dev)
+        first = next(r for r in done if r.mesh == big_mesh)
+        rebuilt = gw.submit(TopoRequest(uid=100, problem=first.problem,
+                                        n_iter=n_iter)).result(timeout=600)
+        counts = kernels.launch_counts()
+        stats = gw.throughput_stats(per_mesh=True)
+        events = [(e.kind, e.tag) for e in gw.fleet_events()]
+        gw.shutdown()
+        leased = reg.leased()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- checks against dedicated engines (launches here do not count)
+    def dedicated(params, reqs):
+        eng = TopoServingEngine(cfg, params, U_SCALE, slots=4,
+                                error_threshold=thr, device=dev)
+        refs = eng.run([TopoRequest(uid=r.uid, problem=r.problem,
+                                    n_iter=n_iter) for r in reqs])
+        eng.shutdown()
+        return refs
+
+    bitwise = {}
+    for tag in ("v1", "v2"):
+        mine = [r for r in done if r.mesh == small_mesh and r.model_tag == tag]
+        refs = dedicated(versions[tag], mine)
+        bitwise[f"{tag}_30x20"] = all(
+            np.array_equal(r.density, ref.density)
+            and (r.cronet_iters, r.fea_iters) == (ref.cronet_iters,
+                                                  ref.fea_iters)
+            for r, ref in zip(mine, refs)) and len(mine) > 0
+    bitwise["rebuilt_60x20"] = bool(np.array_equal(rebuilt.density,
+                                                   first.density))
+    tags = {}
+    for r in done + [rebuilt]:
+        key = f"{r.mesh[0]}x{r.mesh[1]}:{r.model_tag}"
+        tags[key] = tags.get(key, 0) + 1
+    subset = [r for r in done if r.mesh == small_mesh]
+    sub_stats = pool_stats(subset, wall)
+    report = {
+        "phase": "gateway", "slots": 4, "n_iter": n_iter,
+        "error_threshold": thr, "weights": roundtrip["v1"]["weights"],
+        "registry_roundtrip": roundtrip, "tags": tags,
+        "promoted": promoted, "events": events, "leased_after": leased,
+        "gateway_30x20": {k: sub_stats[k] for k in (
+            "problems_per_s", "p50_latency_s", "p99_latency_s")},
+        "gateway_all": {"wall_s": wall, "requests": len(done),
+                        "problems_per_s": len(done) / wall},
+        "serving_30x20": {k: ctx["serving"][k] for k in (
+            "wall_s", "problems_per_s", "p50_latency_s", "p99_latency_s")},
+        "memory_allocated": {"before_evict": mem_before,
+                             "after_evict": mem_after},
+        "bitwise": bitwise, "launches": counts,
+        "engines": stats["engines"], "evictions": stats["evictions"],
+        "rebuilds": stats["rebuilds"], "promotions": stats["promotions"]}
+    for name in ("cronet_fused", "solve_b_fused"):
+        ctx["rows"][name]["gateway_launches"] = counts[name]
+    emit(report)
+    unfinished = [r.uid for r in done + [rebuilt]
+                  if not (r.done and np.all(np.isfinite(r.density)))]
+    mistagged = [r.uid for r in done + [rebuilt]
+                 if r.model_tag != r.routed_tag
+                 or r.model_tag not in ("v1", "v2")
+                 or (r.mesh == big_mesh and r.model_tag != "v1")]
+    if unfinished or mistagged:
+        raise AssertionError(f"unfinished {unfinished}, mis-tagged "
+                             f"{mistagged}")
+    key = f"{small_mesh[0]}x{small_mesh[1]}:"
+    if promoted != ["v2"] or not tags.get(key + "v1") or \
+            not tags.get(key + "v2"):
+        raise AssertionError(f"the canary did not serve and promote: {tags}")
+    if not all(bitwise.values()):
+        raise AssertionError(f"not bitwise: {bitwise}")
+    if not mem_after < mem_before:
+        raise AssertionError("the evicted bucket kept its device memory: "
+                             f"{mem_before} -> {mem_after} bytes")
+    if stats["rebuilds"] != 1.0 or leased:
+        raise AssertionError(f"rebuilds {stats['rebuilds']}, leases left "
+                             f"{leased}")
     if min(counts["cronet_fused"], counts["solve_b_fused"]) == 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
 
@@ -1229,7 +1412,8 @@ def main() -> int:
     ctx = {"device": torch.device("cuda"), "cfg": get_cronet_config("medium")}
     t0 = time.perf_counter()
     for phase in (phase_build, phase_kernels, phase_fusion, phase_breakdown,
-                  phase_lm_kernels, phase_serving, phase_contracts):
+                  phase_lm_kernels, phase_serving, phase_gateway,
+                  phase_contracts):
         try:
             phase(ctx)
         except Exception:

@@ -1,7 +1,9 @@
-"""Observability for the port's serving stack: per-request traces and the
-process-wide metrics registry (copies of ``repro.obs.trace`` and
-``repro.obs.metrics``). The exporters and dashboard of ``repro.obs`` are
-not ported yet."""
+"""Observability for the port's serving stack: per-request traces, the
+process-wide metrics registry, the telemetry exporters and the terminal
+dashboard (copies of ``repro.obs.trace``, ``metrics``, ``export`` and
+``dashboard``)."""
+from repro_torch.obs.dashboard import render, watch
+from repro_torch.obs.export import TelemetrySnapshotter, read_snapshots
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, default_registry,
                                      exponential_buckets,
@@ -12,4 +14,6 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "default_registry", "set_default_registry", "exponential_buckets",
     "Span", "Trace",
+    "TelemetrySnapshotter", "read_snapshots",
+    "render", "watch",
 ]

@@ -35,8 +35,9 @@ The engine runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; on CUDA every tick's CRONet forward and FEA fallback run
 the port's CUDA kernels. There is no compile step in PyTorch, so a ladder
 engine precompiles nothing: the kernels build once, at the first
-activation on a CUDA device. ``engine_from_spec`` (the worker-process
-factory) is not ported yet.
+activation on a CUDA device. ``engine_from_spec`` builds an engine from a
+picklable description (explicit params, or a tag of the shared on-disk
+model registry).
 
 Every op in the batched step is slot-invariant (fea/hybrid.py) and
 park/restore is an exact lane copy, so the density a slot produces does
@@ -66,7 +67,7 @@ from repro_torch.serve.types import (EngineClosed, EngineState, TopoFuture,
                                      TopoRequest, pool_stats)
 
 __all__ = ["TopoRequest", "TopoFuture", "TopoServingEngine", "auto_shards",
-           "shard_devices"]
+           "shard_devices", "engine_from_spec"]
 
 
 @dataclasses.dataclass
@@ -953,6 +954,14 @@ class TopoServingEngine:
             with self._steps_lock:
                 self._steps_base += shard.steps
                 shard.steps = 0
+            if self._closed or self._failure is not None:
+                # terminal: drop the shard's device tensors now, so an
+                # evicted or rolled-back engine frees its memory without
+                # waiting for the garbage collector to break the
+                # engine <-> shard cycle (a restartable stop() keeps
+                # them; activate() replaces them on restart anyway)
+                shard.params = shard.bp = shard.load_vol = None
+                shard.state = None
 
     # -------------------------------------------------------------- shim
 
@@ -1007,3 +1016,54 @@ class TopoServingEngine:
                                         for sh in self._shards)),
             }
         return stats
+
+
+# ------------------------------------------------------------- worker build
+
+
+def engine_from_spec(spec: Dict) -> "TopoServingEngine":
+    """Build a ``TopoServingEngine`` from a picklable description — the
+    engine factory the gateway's worker processes use in-worker (a spec
+    crosses a process boundary; a live engine, with its threads, locks
+    and device tensors, cannot).
+
+    ``spec`` keys:
+
+      * ``cfg`` — the bucket's ``CRONetConfig`` (already mesh-replaced).
+      * ``params`` / ``u_scale`` — explicit model tensors; OR
+      * ``registry_root`` + ``model_tag`` — load the params from the
+        shared on-disk ``ModelRegistry`` (either package's) onto the
+        engine's device instead of shipping the tree.
+      * ``slots`` / ``model_tag`` / ``ladder`` / ``shape_padded`` —
+        engine geometry, verbatim constructor kwargs.
+      * ``engine_kwargs`` — remaining ``TopoServingEngine`` kwargs
+        (``device``, ``precision``, ``error_threshold``, ...). The device
+        defaults to the card. The JAX engine's ``backend`` and
+        ``fea_backend`` have no counterpart here: a spec that names them
+        raises ``TypeError``.
+
+    Construction runs through the same constructor with the same params,
+    so a spec-built engine's densities are bitwise-equal to an engine
+    built directly for the same requests.
+    """
+    cfg = spec["cfg"]
+    params = spec.get("params")
+    u_scale = spec.get("u_scale")
+    tag = spec.get("model_tag")
+    kwargs = dict(spec.get("engine_kwargs") or {})
+    if params is None:
+        root = spec.get("registry_root")
+        if root is None:
+            raise ValueError("engine spec needs params or registry_root")
+        from repro_torch.serve.registry import ModelRegistry
+        params, rec = ModelRegistry(root).load(
+            tag, device=kwargs.get("device", "cuda"))
+        tag = rec.tag
+        u_scale = u_scale if u_scale is not None else rec.u_scale
+    return TopoServingEngine(
+        cfg, params, u_scale,
+        slots=int(spec.get("slots", 8)),
+        model_tag=tag,
+        ladder=spec.get("ladder"),
+        shape_padded=bool(spec.get("shape_padded", False)),
+        **kwargs)

@@ -15,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,6 +29,7 @@ from repro_torch.fea import fea2d, hybrid
 from repro_torch.kernels import (cg_fused, conv, cronet_pipeline, gemm, pool,
                                  ref, silu, slstm)
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.serve import ModelRegistry, TopoGateway
 from repro_torch.serve.topo_service import TopoServingEngine
 from repro_torch.serve.types import TopoRequest
 
@@ -253,6 +255,49 @@ def test_engine_serves_on_the_card(dev):
         for i in range(2)])
     eng.shutdown()
     assert all(r.done and r.cronet_iters > 0 for r in done)
+
+
+def test_gateway_serves_from_the_registry_on_the_card(dev, tmp_path):
+    """A registered version loads onto the card bitwise; the gateway serves
+    two meshes through both serving kernels, each density bitwise equal to
+    a dedicated engine's; an evicted bucket frees its tensors and rebuilds
+    to the same bits."""
+    cfg = dataclasses.replace(get_cronet_config("small"), hist_len=3)
+    params = init_params(cfg, 0, device=dev, dtype="float32")
+    reg = ModelRegistry(str(tmp_path))
+    reg.register(params, cfg, 50.0, tag="v1")
+    loaded, _ = reg.load("v1", device=dev)
+    assert all(torch.equal(loaded[p][n], params[p][n])
+               for p in params for n in params[p])
+    before = (cronet_pipeline.cronet_fused.launches,
+              cg_fused.solve_b_fused.launches)
+    gw = TopoGateway.from_registry(reg, "v1", slots=2, device=dev,
+                                   error_threshold=1e9)
+    meshes = [(cfg.nelx, cfg.nely), (cfg.nelx - 6, cfg.nely)]
+    futs = [gw.submit(TopoRequest(uid=i, problem=fea2d.point_load_problem(
+        *meshes[i % 2], load_node=(2 * i, 0)), n_iter=6)) for i in range(4)]
+    done = [f.result(timeout=300) for f in futs]
+    assert gw.drain(timeout=60)
+    freed = torch.cuda.memory_allocated(dev)
+    assert gw.evict_bucket(meshes[1], timeout=60)
+    assert torch.cuda.memory_allocated(dev) < freed
+    again = gw.submit(TopoRequest(uid=9, problem=done[1].problem,
+                                  n_iter=6)).result(timeout=300)
+    gw.shutdown()
+    assert cronet_pipeline.cronet_fused.launches > before[0]
+    assert cg_fused.solve_b_fused.launches > before[1]
+    np.testing.assert_array_equal(again.density, done[1].density)
+    for mesh in meshes:
+        mine = [r for r in done if r.mesh == mesh]
+        eng = TopoServingEngine(
+            dataclasses.replace(cfg, nelx=mesh[0], nely=mesh[1]), loaded,
+            50.0, slots=2, error_threshold=1e9, device=dev)
+        refs = eng.run([TopoRequest(uid=r.uid, problem=r.problem,
+                                    n_iter=6) for r in mine])
+        eng.shutdown()
+        for r, ref in zip(mine, refs):
+            assert r.model_tag == "v1" and r.cronet_iters > 0
+            np.testing.assert_array_equal(r.density, ref.density)
 
 
 # the per-op kernels at CRONet medium's layer shapes (kernel, plain, args)

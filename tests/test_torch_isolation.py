@@ -1,6 +1,7 @@
 """The port stands alone: nothing under src/repro_torch/ and nothing in
 chip_smoke.py imports JAX or the JAX package, and the port serves on the
-CPU in a process where importing either would fail."""
+CPU, through an engine and through the registry and the gateway, in a
+process where importing either would fail."""
 import ast
 import os
 import subprocess
@@ -62,9 +63,31 @@ done = eng.run([TopoRequest(uid=i, problem=fea2d.point_load_problem(
 eng.shutdown()
 assert all(r.done and r.density.shape == (4, 12) for r in done)
 assert sum(r.cronet_iters for r in done) > 0
+# the registry and the gateway: register, serve two meshes, snapshot
+import tempfile
+from repro_torch.obs import TelemetrySnapshotter, read_snapshots
+from repro_torch.serve import ModelRegistry, TopoGateway
+root = tempfile.mkdtemp()
+reg = ModelRegistry(root + "/registry")
+reg.register(params, cfg, 50.0, tag="v1")
+gw = TopoGateway.from_registry(reg, "v1", slots=2, device="cpu",
+                               error_threshold=1e9, trace_every=1)
+snap = TelemetrySnapshotter(root + "/telemetry.jsonl",
+                            extra=gw.throughput_stats)
+futs = [gw.submit(TopoRequest(uid=10 + i, problem=fea2d.point_load_problem(
+    *mesh, load_node=(i, 0)), n_iter=4))
+    for i, mesh in enumerate([(12, 4), (10, 6), (12, 4)])]
+got = [f.result(timeout=120) for f in futs]
+snap.snapshot_once()
+gw.shutdown()
+assert [r.model_tag for r in got] == ["v1"] * 3
+assert [r.density.shape for r in got] == [(4, 12), (6, 10), (4, 12)]
+(rec,) = read_snapshots(root + "/telemetry.jsonl")
+assert rec["extra"]["engines"] == 2.0
+assert "topo_completions_total" in rec["metrics"]
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
-print("served", [round(r.compliance, 3) for r in done])
+print("served", [round(r.compliance, 3) for r in done + got])
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
