@@ -70,9 +70,12 @@ Phases, one JSON line each on stdout:
      registered in a fresh ModelRegistry and loaded back onto the card
      (fp32 equal, the bf16 load equal to .to(bfloat16)); then
      TopoGateway.from_registry(reg, "v1", slots=4) at threshold 0.1
-     serves serving's 8 requests on 30x20 and 4 on 60x20 (large's mesh),
+     serves serving's 8 requests on 30x20 and 4 of the MBB load case on
+     60x20 (large's mesh; four volume fractions and loads),
      with canary("v2", fraction=0.5) on 30x20 started part-way and
-     promoted after; every density finite, every completion tagged with
+     promoted after (and first the serving mix alone through a gateway,
+     for the front door's own cost); every density finite, every
+     completion tagged with
      its engine's version, the 30x20 completions of each version bitwise
      equal to a dedicated engine's run of them, and the 60x20 bucket
      evicted (memory_allocated must drop) and rebuilt to the same bits;
@@ -1244,8 +1247,25 @@ def phase_gateway(ctx):
 
         # -- the gateway: two meshes, a canary promoted part-way through
         small = problems(fea2d, cfg, 8)
-        large = problems(fea2d, big, 4, seed=1)
+        # 60x20 keeps the MBB load case (at four volume fractions and
+        # loads): under most other top loads fp32 PCG turns NaN at 60x20
+        # once void regions form, in the JAX package too (ROADMAP.md §C)
+        large = [fea2d.point_load_problem(*big_mesh, load=(0.0, -m),
+                                          volfrac=v)
+                 for v, m in ((0.4, 1.0), (0.45, 1.0), (0.5, 1.0),
+                              (0.5, 0.8))]
         kernels.reset_launch_counts()
+        # the serving phase's mix alone through the front door: what the
+        # gateway itself costs beside the bare engine
+        alone = TopoGateway.from_registry(reg, "v1", slots=4, device=dev,
+                                          error_threshold=thr)
+        t0 = time.perf_counter()
+        solo = [f.result(timeout=600) for f in [
+            alone.submit(TopoRequest(uid=i, problem=p, n_iter=n_iter))
+            for i, p in enumerate(small)]]
+        solo_wall = time.perf_counter() - t0
+        solo_stats = dict(pool_stats(solo, solo_wall), wall_s=solo_wall)
+        alone.shutdown()
         gw = TopoGateway.from_registry(reg, "v1", slots=4, device=dev,
                                        error_threshold=thr, max_pending=64)
         t0 = time.perf_counter()
@@ -1318,6 +1338,8 @@ def phase_gateway(ctx):
         "error_threshold": thr, "weights": roundtrip["v1"]["weights"],
         "registry_roundtrip": roundtrip, "tags": tags,
         "promoted": promoted, "events": events, "leased_after": leased,
+        "gateway_alone_30x20": {k: solo_stats[k] for k in (
+            "wall_s", "problems_per_s", "p50_latency_s", "p99_latency_s")},
         "gateway_30x20": {k: sub_stats[k] for k in (
             "problems_per_s", "p50_latency_s", "p99_latency_s")},
         "gateway_all": {"wall_s": wall, "requests": len(done),
@@ -1327,12 +1349,16 @@ def phase_gateway(ctx):
         "memory_allocated": {"before_evict": mem_before,
                              "after_evict": mem_after},
         "bitwise": bitwise, "launches": counts,
+        "per_mesh": {m: {k: st.get(k) for k in (
+            "requests", "p50_latency_s", "p99_latency_s", "total_steps")}
+            for m, st in stats["per_mesh"].items()},
+        "total_steps": stats["total_steps"],
         "engines": stats["engines"], "evictions": stats["evictions"],
         "rebuilds": stats["rebuilds"], "promotions": stats["promotions"]}
     for name in ("cronet_fused", "solve_b_fused"):
         ctx["rows"][name]["gateway_launches"] = counts[name]
     emit(report)
-    unfinished = [r.uid for r in done + [rebuilt]
+    unfinished = [r.uid for r in solo + done + [rebuilt]
                   if not (r.done and np.all(np.isfinite(r.density)))]
     mistagged = [r.uid for r in done + [rebuilt]
                  if r.model_tag != r.routed_tag

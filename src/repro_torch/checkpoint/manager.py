@@ -133,17 +133,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(name.split("_")[1])
 
 
-def _leaf_dtype(leaf) -> torch.dtype:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.dtype
-    return torch.from_numpy(np.zeros((), np.asarray(leaf).dtype)).dtype
-
-
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
             device="cuda"):
-    """Restore into the structure of ``like`` (a tree of tensors, meta
-    tensors such as ``torch.empty(shape, dtype=..., device="meta")``, or
-    arrays): each leaf comes back as a tensor of the like leaf's dtype on
+    """Restore into the structure of ``like`` (a tree of tensors, or of
+    meta tensors such as ``torch.empty(shape, dtype=..., device="meta")``):
+    each leaf comes back as a tensor of the like leaf's dtype on
     ``device`` (the card unless the caller asks for the CPU). Verifies the
     content hashes first and raises on a key ``like`` has and the
     checkpoint lacks. Returns (tree, extras)."""
@@ -167,9 +161,8 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
 
     def load(key, leaf):
         val = torch.from_numpy(np.array(data[key]))
-        want = _leaf_dtype(leaf)
-        if val.dtype != want:
-            val = val.to(want)
+        if val.dtype != leaf.dtype:
+            val = val.to(leaf.dtype)
         return val.to(dev)
 
     tree = _map_with_paths(load, like)

@@ -64,9 +64,9 @@ Fleet operations — the per-bucket model lifecycle under live traffic:
     cold (no queued, in-flight, or arriving work) past the horizon is
     EVICTED — engine shut down (its device tensors freed), stats retired
     into the gateway's history — and lazily REBUILT on next sight of the
-    mesh, bitwise contract intact (the mesh-template and step caches
-    and the resolver's param cache make the rebuild cheap). With ``autoscale=True`` a (re)built bucket's
-    slot width follows its observed arrival rate
+    mesh, bitwise contract intact (the mesh-template, step and param
+    caches make the rebuild cheap). With ``autoscale=True`` a (re)built
+    bucket's slot width follows its observed arrival rate
     (``scheduler.target_slots``), so hot meshes get wide engines and
     cold ones the minimum width — and with ``ladder=`` set the width
     follows the rate LIVE: buckets build wide, every maintenance pass
@@ -251,9 +251,9 @@ class TopoGateway:
     bucket_window : completion window for the per-bucket acceptance
         stats behind ``bucket_stats()`` (the flywheel's trigger
         signal).
-    workers, worker_pool_kwargs : the reference moves the engine pool
-        into worker processes here; the port has no ``serve/workers.py``
-        yet, so ``workers=`` raises ``NotImplementedError``.
+    workers, worker_pool_kwargs : move the engine pool into worker
+        processes; ``serve/workers.py`` is not ported yet, so
+        ``workers=`` raises ``NotImplementedError``.
     device : where every engine of the pool runs and where registry
         versions are loaded: ``"cuda"`` (default; raises here, at
         construction, without a GPU) or ``"cpu"``. Explicit params must

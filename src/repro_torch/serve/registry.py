@@ -33,7 +33,8 @@ Fleet operations (the per-bucket model lifecycle) add three notions:
     canary graduates to a bucket's serving model, so the index records
     which versions ever carried production traffic.
 
-The serving-data flywheel (serve/flywheel.py) adds two more:
+The serving-data flywheel (the reference's serve/flywheel.py, not ported
+yet) adds two more:
 
   * LINEAGE — ``register(..., parent=tag)`` records which version a
     fine-tuned child warm-started from; the retention ``sweep`` groups

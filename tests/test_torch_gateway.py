@@ -38,7 +38,7 @@ from repro.common import materialize
 from repro.configs.cronet import get_cronet_config as jget_cronet_config
 from repro.core import cronet as jcronet
 from repro.fea import fea2d as jfea
-from repro_torch.common import map_params, params_from_jax
+from repro_torch.common import params_from_jax
 from repro_torch.configs.cronet import get_cronet_config
 from repro_torch.fea import fea2d
 from repro_torch.obs.metrics import MetricsRegistry
@@ -613,6 +613,56 @@ def scn_autoscale_widths(m):
     return {"widths": widths, "decayed": decayed}
 
 
+class _Sink:
+    """A duck-typed harvest sink (``record`` and ``flush``), as the
+    reference's ``HarvestLog`` is; ``fail_on`` makes one record raise."""
+
+    def __init__(self, fail_on=None):
+        self.records, self.flushes, self.fail_on = [], 0, fail_on
+
+    def record(self, req):
+        if req.uid == self.fail_on:
+            raise ValueError("sink full")
+        self.records.append(req.uid)
+
+    def flush(self):
+        self.flushes += 1
+
+
+def scn_harvest_sink(m):
+    sink = _Sink(fail_on=2)
+    gw, built = _fake_gateway(m, fleet=True, max_pending=None, harvest=sink)
+    futs = [gw.submit(_req(m, i, *mesh)) for i, mesh in
+            enumerate([(12, 4), (10, 6), (12, 4), (10, 6)])]
+    _pump(gw, built)
+    tags = _tags(futs)        # a raising sink never drops a completion
+    gw.shutdown()
+    errors = [e for e in gw.fleet_events() if e.kind == "harvest-error"]
+    assert sink.flushes >= 1 and len(errors) == 1
+    return {"records": sorted(sink.records), "flushes": sink.flushes,
+            "errors": [(e.mesh, e.tag) for e in errors], "tags": tags}
+
+
+def scn_traces_and_bucket_stats(m):
+    gw, built = _fake_gateway(m, fleet=True, max_pending=None,
+                              trace_every=2, bucket_window=8)
+    futs = [gw.submit(_req(m, i, 12, 4)) for i in range(4)]
+    _pump(gw, built)
+    traced = [f.request.uid for f in futs if gw.trace(f.request.uid)]
+    tr = gw.trace(traced[0])
+    # the gateway opens the queued span at its own front-door stamp
+    spans = (tr.uid, tr._open[0], tr.submit_t == futs[1].request.submit_t)
+    bstats = gw.bucket_stats((12, 4))
+    out = {"traced": traced, "spans": spans,
+           "bucket": (bstats["recent_completed"],
+                      bstats["recent_cronet_hit_rate"]),
+           "serving_tag": gw.serving_tag((12, 4)),
+           "all_buckets": sorted(gw.bucket_stats())}
+    gw.shutdown()
+    assert traced == [1, 3] and spans == (1, "queued", True)
+    return out
+
+
 SCENARIOS = {name[4:]: fn for name, fn in sorted(globals().items())
              if name.startswith("scn_")}
 
@@ -847,10 +897,78 @@ def test_swap_model_on_empty_pool_and_mesh_specialized_resolution(
     _assert_same([r3], _dedicated(tparams[1], (12, 4), [r3]))
 
 
+def test_shape_classes_and_live_ladder_serve_bitwise(tparams):
+    """Shape-class routing pads a 10x4 request onto the 12x4 class and
+    crops it back; with a ladder and autoscale the bucket is built wide
+    and resized live (``set_target_slots``, a ``resize`` event). Each
+    density equals a dedicated engine's (shape-padded for the class)."""
+    gw = TopoGateway(CFG, tparams[0], U_SCALE, slots=4, device="cpu",
+                     error_threshold=THRESHOLD, shape_classes=["12x4"],
+                     ladder=(2, 4), autoscale=True, min_slots=2,
+                     max_slots=4)
+    raw = fea2d.point_load_problem(10, 4, load_node=(3, 0))
+    exact = _mesh_problems(1, 12, 4)[0]
+    futs = [gw.submit(TopoRequest(uid=0, problem=raw, n_iter=5)),
+            gw.submit(TopoRequest(uid=1, problem=exact, n_iter=5))]
+    done = [f.result(timeout=300) for f in futs]
+    assert gw.drain(timeout=60)
+    assert wait_until(lambda: gw.fleet_events("resize"))
+    assert list(gw.engines) == [(12, 4)]
+    eng = gw.engines[(12, 4)]
+    assert eng.shape_padded and eng.slots == 4 and eng.ladder == (2, 4)
+    gw.shutdown()
+    assert done[0].density.shape == (4, 10) and done[0].orig_mesh == (10, 4)
+    ref_eng = TopoServingEngine(CFG, tparams[0], U_SCALE, slots=2,
+                                shape_padded=True, device="cpu",
+                                error_threshold=THRESHOLD,
+                                metrics=MetricsRegistry())
+    refs = ref_eng.run([
+        TopoRequest(uid=0, problem=fea2d.pad_problem(raw, 12, 4), n_iter=5,
+                    orig_mesh=(10, 4)),
+        TopoRequest(uid=1, problem=exact, n_iter=5)])
+    ref_eng.shutdown()
+    _assert_same(done, refs)
+
+
+def test_engine_hooks_the_gateway_uses_match_the_reference(jparams,
+                                                           tparams):
+    """The engine surface the gateway drives behaves as the JAX engine's:
+    ``set_target_slots`` snaps to the same rungs, ``swap_params`` refuses
+    a running engine, and ``submit(_future=...)`` keeps the caller's
+    future and stamps."""
+    engines = {
+        "jax": jserve.TopoServingEngine(JCFG, jparams[0], U_SCALE, slots=4,
+                                        ladder=(2, 4),
+                                        error_threshold=THRESHOLD),
+        "torch": TopoServingEngine(CFG, tparams[0], U_SCALE, slots=4,
+                                   ladder=(2, 4), error_threshold=THRESHOLD,
+                                   device="cpu", metrics=MetricsRegistry())}
+    got = {}
+    for pkg, eng in engines.items():
+        m, fea = PKGS[pkg], (jfea if pkg == "jax" else fea2d)
+        caps = [eng.set_target_slots(n) for n in range(0, 7)]
+        req = m.TopoRequest(uid=0, problem=fea.point_load_problem(12, 4),
+                            n_iter=3)
+        req.submit_t, req.deadline = 123.0, None
+        fut = m.TopoFuture(req)
+        assert eng.submit(req, _future=fut) is fut
+        with pytest.raises(RuntimeError, match="drain"):
+            eng.swap_params(eng.params, model_tag="x")
+        done = fut.result(timeout=300)
+        eng.shutdown()
+        got[pkg] = (caps, done.submit_t, done.model_tag, eng.inflight,
+                    eng.total_steps > 0)
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == [2, 2, 2, 4, 4, 4, 4]
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
 def test_failed_engine_fails_its_futures_and_never_hangs(tparams):
     """A real engine whose tick raises (a kernel that failed to build or
     launch does this on the card) fails its queued and in-flight futures
-    with that error; nothing hangs and nothing falls back."""
+    with that error; nothing hangs and nothing falls back. (The tick
+    thread re-raises after failing its waiters, as the reference's does.)"""
     gw = TopoGateway(CFG, tparams[0], U_SCALE, slots=2, device="cpu",
                      error_threshold=THRESHOLD)
     boom = RuntimeError("kernel launch failed")
