@@ -15,7 +15,14 @@ Phases, one JSON line each on stdout:
      solve_b_fused with a mix of need flags, an idle slot, a warm start
      and a shape-padded (elem_mask) batch, bitwise equal to its
      plain loop (U and iterations) in both; times of both, and the CG
-     kernel's us per iteration of its longest slot.
+     kernel's us per iteration of its longest slot. Then both at the
+     gateway phase's 60x20 shapes (large's mesh, medium's weights, 4
+     slots): over 20 engine ticks at threshold 0.1 on the serving
+     generator's seed-1 requests, which include top point loads under
+     which fp32 PCG turns NaN at 60x20, solve_b_fused bitwise equal to
+     solve_b_plain on every tick's state (U and iterations, NaN where the
+     plain loop has NaN), and cronet_fused within 1e-4 of its plain
+     version on that run's last all-finite history and on a random one.
   3. fusion — (a) each per-op kernel (conv2d, conv3d, gemm, maxpool2d,
      adaptive_avg_pool2d/3d) against its plain version at CRONet medium's
      layer shapes and at odd shapes, fp32 and bf16 (the adaptive pools, the
@@ -69,12 +76,15 @@ Phases, one JSON line each on stdout:
   7. gateway — CRONet medium's random weights v1 (seed 0) and v2 (seed 1)
      registered in a fresh ModelRegistry and loaded back onto the card
      (fp32 equal, the bf16 load equal to .to(bfloat16)); then
+     serving's 8 requests on 30x20 through a bare engine and through a
+     gateway of one bucket, both warm, MIX_RUNS times each in turns (the
+     same pool_stats over each run); then
      TopoGateway.from_registry(reg, "v1", slots=4) at threshold 0.1
      serves serving's 8 requests on 30x20 and 4 of the MBB load case on
-     60x20 (large's mesh; four volume fractions and loads),
+     60x20 (large's mesh; four volume fractions and loads: the serving
+     generator's point loads turn NaN there, see the kernels phase),
      with canary("v2", fraction=0.5) on 30x20 started part-way and
-     promoted after (and first the serving mix alone through a gateway,
-     for the front door's own cost); every density finite, every
+     promoted after; every density finite, every
      completion tagged with
      its engine's version, the 30x20 completions of each version bitwise
      equal to a dedicated engine's run of them, and the 60x20 bucket
@@ -109,6 +119,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 U_SCALE = 50.0
+MIX_RUNS = 3                    # timed runs of the serving mix, each front
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # bf16 on the tensor cores, dense
@@ -328,12 +339,93 @@ def phase_kernels(ctx):
                  "iterations +-1", "ok": cg_ok,
           "kernel_ms": k_ms, "plain_ms": p_ms, "iterations_timed": its_warm,
           "us_per_iteration": us_per_iter, "library_ms": None})
+    ok60 = kernels_at_60x20(ctx, rows)
     ctx["rows"] = rows
-    if not (ok32 and ok16 and ok16_32 and cg_ok):
+    if not (ok32 and ok16 and ok16_32 and cg_ok and ok60):
         raise AssertionError("a kernel disagrees with its plain version")
     if not ok_calls:
         raise AssertionError(f"cronet_fused: {per_call} device kernels a "
                              f"call (at most 3), same bits {same_bits}")
+
+
+def kernels_at_60x20(ctx, rows) -> bool:
+    """Both serving kernels at the shapes the gateway phase gives them on
+    large's 60x20 mesh: medium's weights, 4 slots, the engine's tick at
+    threshold 0.1. The slots hold the serving generator's seed-1 requests
+    (the MBB case and three top point loads), under which fp32 PCG turns
+    NaN at this mesh (tests/test_torch_hybrid.py shows it in both
+    packages on the CPU). Before each of 20 ticks, ``solve_b_fused`` and
+    ``solve_b_plain`` solve that tick's state: U and iterations bitwise,
+    NaN where the plain version has NaN. ``cronet_fused`` is held to its
+    plain version (rtol=atol=1e-4) on the last history in which every
+    slot is finite and on a random one. Adds the largest errors to the
+    kernels' rows."""
+    import dataclasses
+    import torch
+    from repro_torch.common import init_params
+    from repro_torch.configs.cronet import get_cronet_config
+    from repro_torch.fea import fea2d, hybrid
+    from repro_torch.kernels import cg_fused, cronet_pipeline
+    dev, big = ctx["device"], get_cronet_config("large")
+    cfg = dataclasses.replace(ctx["cfg"], nelx=big.nelx, nely=big.nely)
+    params = hybrid.cast_params(init_params(ctx["cfg"], seed=0, device=dev),
+                                "fp32")
+    bp = fea2d.stack_problems(problems(fea2d, cfg, 4, seed=1), device=dev)
+    lv = fea2d.load_volume_b(bp)
+    step = hybrid.make_hybrid_step(cfg, U_SCALE, 0.1, 3, 1.5, "fp32")
+    state = hybrid.init_state(cfg, bp)
+    ticks, cg_ok, first_nan, hist_finite = [], True, [None] * 4, None
+    err_cg = 0.0
+    for k in range(1, 21):
+        U, its = cg_fused.solve_b_fused(bp, state.x, U0=state.u)
+        Ur, itr = cg_fused.solve_b_plain(bp, state.x, U0=state.u)
+        sync()
+        bitwise = same_bits(U, Ur) and bool(torch.equal(its, itr))
+        cg_ok = cg_ok and bitwise
+        both = U.isfinite() & Ur.isfinite()
+        err_cg = max(err_cg, float(torch.where(both, (U - Ur).abs(), 0.0)
+                                   .max()))
+        ticks.append({"tick": k, "bitwise": bitwise,
+                      "its": its.cpu().tolist(),
+                      "finite_u": U.isfinite().all(dim=1).cpu().tolist()})
+        if bool(state.hist.isfinite().all()):
+            hist_finite = state.hist.clone()
+        state = step(params, bp, lv, state)
+        for b, fin in enumerate(state.x.isfinite().flatten(1).all(dim=1)
+                                .cpu().tolist()):
+            if not fin and first_nan[b] is None:
+                first_nan[b] = k
+    gen = torch.Generator().manual_seed(60)
+    hists = {"trajectory": hist_finite[..., None],
+             "random": torch.rand(hist_finite[..., None].shape,
+                                  generator=gen).to(dev)}
+    cronet = {}
+    for label, hist in hists.items():
+        out = cronet_pipeline.cronet_fused(cfg, params, lv, hist)
+        ref = cronet_pipeline.cronet_fused_plain(cfg, params, lv, hist)
+        sync()
+        cronet[label] = {
+            "max_abs_err": float((out - ref).abs().max()),
+            "max_abs_ref": float(ref.abs().max()),
+            "ok": bool(torch.allclose(out, ref, rtol=1e-4, atol=1e-4))}
+    cr_ok = all(c["ok"] for c in cronet.values())
+    err_cr = max(c["max_abs_err"] for c in cronet.values())
+    rows["cronet_fused"]["max_abs_err"] = max(
+        rows["cronet_fused"]["max_abs_err"], err_cr)
+    rows["cronet_fused"]["max_abs_err_60x20"] = err_cr
+    rows["solve_b_fused"]["max_abs_err"] = max(
+        rows["solve_b_fused"]["max_abs_err"], err_cg)
+    rows["solve_b_fused"]["max_abs_err_60x20"] = err_cg
+    emit({"phase": "kernel", "mesh": "60x20", "B": 4, "error_threshold": 0.1,
+          "loads": "problems(fea2d, cfg, 4, seed=1)",
+          "solve_b_fused": {"tol": "bitwise (U and iterations), NaN where "
+                                   "the plain version has NaN",
+                            "ok": cg_ok, "max_abs_err": err_cg,
+                            "first_nan_tick": first_nan,
+                            "ticks": ticks},
+          "cronet_fused": {"tol": "rtol=atol=1e-4", "ok": cr_ok,
+                           "cases": cronet}})
+    return cg_ok and cr_ok
 
 
 def _valid_taps(n: int, k: int, causal: bool) -> int:
@@ -1248,24 +1340,38 @@ def phase_gateway(ctx):
         # -- the gateway: two meshes, a canary promoted part-way through
         small = problems(fea2d, cfg, 8)
         # 60x20 keeps the MBB load case (at four volume fractions and
-        # loads): under most other top loads fp32 PCG turns NaN at 60x20
-        # once void regions form, in the JAX package too (ROADMAP.md §C)
+        # loads): under the serving generator's top point loads fp32 PCG
+        # turns NaN at 60x20 once void regions form, in the JAX package
+        # too (tests/test_torch_hybrid.py::
+        # test_fp32_pcg_turns_nan_at_60x20_in_both_packages)
         large = [fea2d.point_load_problem(*big_mesh, load=(0.0, -m),
                                           volfrac=v)
                  for v, m in ((0.4, 1.0), (0.45, 1.0), (0.5, 1.0),
                               (0.5, 0.8))]
-        kernels.reset_launch_counts()
-        # the serving phase's mix alone through the front door: what the
-        # gateway itself costs beside the bare engine
+        # the serving phase's mix through a bare engine and through a
+        # gateway of one bucket, both warm and both read by pool_stats:
+        # one untimed run of each, then MIX_RUNS of each in turns
+        bare = TopoServingEngine(cfg, versions["v1"], U_SCALE, slots=4,
+                                 error_threshold=thr, device=dev)
         alone = TopoGateway.from_registry(reg, "v1", slots=4, device=dev,
                                           error_threshold=thr)
-        t0 = time.perf_counter()
-        solo = [f.result(timeout=600) for f in [
-            alone.submit(TopoRequest(uid=i, problem=p, n_iter=n_iter))
-            for i, p in enumerate(small)]]
-        solo_wall = time.perf_counter() - t0
-        solo_stats = dict(pool_stats(solo, solo_wall), wall_s=solo_wall)
+        mix = {"engine": [], "gateway": []}
+        solo = []
+        for run in range(MIX_RUNS + 1):
+            for front, label in ((bare, "engine"), (alone, "gateway")):
+                t0 = time.perf_counter()
+                futs = [front.submit(TopoRequest(uid=100 * run + i,
+                                                 problem=p, n_iter=n_iter))
+                        for i, p in enumerate(small)]
+                got = [f.result(timeout=600) for f in futs]
+                run_wall = time.perf_counter() - t0
+                solo += got
+                if run:
+                    mix[label].append(dict(pool_stats(got, run_wall),
+                                           wall_s=run_wall))
+        bare.shutdown()
         alone.shutdown()
+        kernels.reset_launch_counts()
         gw = TopoGateway.from_registry(reg, "v1", slots=4, device=dev,
                                        error_threshold=thr, max_pending=64)
         t0 = time.perf_counter()
@@ -1338,8 +1444,9 @@ def phase_gateway(ctx):
         "error_threshold": thr, "weights": roundtrip["v1"]["weights"],
         "registry_roundtrip": roundtrip, "tags": tags,
         "promoted": promoted, "events": events, "leased_after": leased,
-        "gateway_alone_30x20": {k: solo_stats[k] for k in (
-            "wall_s", "problems_per_s", "p50_latency_s", "p99_latency_s")},
+        "mix_30x20_in_turns": {label: {k: [r[k] for r in runs] for k in (
+            "wall_s", "problems_per_s", "p50_latency_s", "p99_latency_s")}
+            for label, runs in mix.items()},
         "gateway_30x20": {k: sub_stats[k] for k in (
             "problems_per_s", "p50_latency_s", "p99_latency_s")},
         "gateway_all": {"wall_s": wall, "requests": len(done),

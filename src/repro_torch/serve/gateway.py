@@ -251,9 +251,9 @@ class TopoGateway:
     bucket_window : completion window for the per-bucket acceptance
         stats behind ``bucket_stats()`` (the flywheel's trigger
         signal).
-    workers, worker_pool_kwargs : move the engine pool into worker
-        processes; ``serve/workers.py`` is not ported yet, so
-        ``workers=`` raises ``NotImplementedError``.
+    workers : move the engine pool into worker processes;
+        ``serve/workers.py`` is not ported yet, so ``workers=`` raises
+        ``NotImplementedError``.
     device : where every engine of the pool runs and where registry
         versions are loaded: ``"cuda"`` (default; raises here, at
         construction, without a GPU) or ``"cpu"``. Explicit params must
@@ -285,7 +285,6 @@ class TopoGateway:
                  bucket_window: Optional[int] = 256,
                  trace_every: int = 0,
                  workers: Optional[int] = None,
-                 worker_pool_kwargs: Optional[Dict] = None,
                  device="cuda",
                  **engine_kwargs):
         if workers is not None:

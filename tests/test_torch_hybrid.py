@@ -253,3 +253,60 @@ def test_masked_tick_matches_jax_from_shared_state(jparams, n_before):
                                np.asarray(jnext.compliance), rtol=1e-3)
     np.testing.assert_allclose(tnext.x.numpy(), np.asarray(jnext.x),
                                rtol=0, atol=2e-3)
+
+
+def _first_nonfinite(xs):
+    """Per slot, the first tick (1-based) whose densities are not all
+    finite, or None."""
+    out = []
+    for b in range(xs[0].shape[0]):
+        bad = [k + 1 for k, x in enumerate(xs)
+               if not np.all(np.isfinite(x[b]))]
+        out.append(bad[0] if bad else None)
+    return out
+
+
+def test_fp32_pcg_turns_nan_at_60x20_in_both_packages():
+    """A fault of the reference that the port shares: on large's 60x20
+    mesh, fp32 Jacobi-PCG turns the design NaN under top point loads once
+    void regions form. The loads are two of chip_smoke.py's seed-1
+    requests (``chip_smoke.problems(fea2d, large, 4, seed=1)[2:]``), each
+    stepped by both packages' engine tick at threshold 0.1 for 20 ticks
+    (the requests' length in chip_smoke). Random weights never pass the
+    gate, so every tick is an FEA tick in both and the trajectory is the
+    SIMP loop's; the CRONet's widths do not enter it. Both packages start
+    finite (ticks 1-4) and both turn NaN by tick 20. The tick of the first
+    NaN differs between them: at this mesh the CG's stopping iteration
+    differs from tick 1 on, and the design drifts apart before it
+    diverges."""
+    cfg = dataclasses.replace(CFG, nelx=60, nely=20)
+    rng = np.random.default_rng(1)
+    draws = [dict(load_node=(int(rng.integers(0, 59)), 0),
+                  load=(0.0, float(-0.5 - rng.random()))) for _ in range(3)]
+    specs = draws[1:]
+    jb = jfea.stack_problems([jfea.point_load_problem(60, 20, **s)
+                              for s in specs])
+    jlv = jfea.load_volume_b(jb)
+    jstep = jax.jit(jhybrid.make_hybrid_step(cfg, U_SCALE, 0.1, 3, 1.5,
+                                             "fp32"))
+    jp = jhybrid.cast_params(jax.device_get(materialize(
+        jcronet.param_specs(cfg), jax.random.key(0))), "fp32")
+    js = jhybrid.init_state(cfg, jb)
+    tb = tfea.stack_problems([tfea.point_load_problem(60, 20, **s)
+                              for s in specs], device="cpu")
+    tlv = tfea.load_volume_b(tb)
+    tstep = thybrid.make_hybrid_step(cfg, U_SCALE, 0.1, 3, 1.5, "fp32")
+    tp = thybrid.cast_params(params_from_jax(jax.device_get(materialize(
+        jcronet.param_specs(cfg), jax.random.key(0))), device="cpu"), "fp32")
+    ts = thybrid.init_state(cfg, tb)
+    jxs, txs = [], []
+    for _ in range(20):
+        js = jstep(jp, jb, jlv, js)
+        ts = tstep(tp, tb, tlv, ts)
+        jxs.append(np.asarray(js.x))
+        txs.append(ts.x.numpy())
+    assert np.asarray(js.n_cronet).tolist() == [0, 0]
+    assert ts.n_cronet.tolist() == [0, 0]
+    first = {"jax": _first_nonfinite(jxs), "port": _first_nonfinite(txs)}
+    for package, ticks in first.items():
+        assert all(t is not None and 4 < t <= 20 for t in ticks), first
