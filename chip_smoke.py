@@ -91,12 +91,29 @@ Phases, one JSON line each on stdout:
      evicted (memory_allocated must drop) and rebuilt to the same bits;
      problems/s and p50/p99 beside the serving phase's; cronet_fused and
      solve_b_fused must be launched by that phase.
-  8. contracts — one tick at width 4 equals the same slots' tick at width 2
+  8. workers — the gateway phase's mix (8 requests on 30x20, 4 of the MBB
+     load case on 60x20, a canary of v2 at 0.5 on 30x20) from a fresh
+     registry through three fronts: TopoGateway(workers=3) (one bucket a
+     process), workers=1 (the three tick loops in one worker, the front
+     door outside it) and the threaded gateway; one warm run each, then
+     3 / 1 / 3 timed runs in turns, each read by one pool_stats, with
+     each bucket's ms a tick (its span over its steps), os.cpu_count()
+     and each worker's spawn-to-first-build seconds; every completion of
+     every run (densities, CRONet / FEA / CG iterations) bitwise equal
+     to a dedicated in-process engine's. Then unregistered card params
+     through workers=1: the worker's tree equal to the parent's by
+     digest and on its device, its densities bitwise equal; then kill -9
+     of that worker with four requests in a tick and two queued: the four
+     fail with WorkerLost naming it, the two complete on the respawned
+     worker, bitwise. cronet_fused and solve_b_fused must launch in the
+     worker processes (each worker's counts from its stats verb).
+  9. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
 drives its path: serving for cronet_fused and solve_b_fused (the gateway
-phase's as gateway_launches), fusion (b)
+phase's as gateway_launches, the worker processes' of the workers phase
+as workers_launches), fusion (b)
 for the per-op kernels, breakdown's layer_breakdown.run for the SiLU
 kernels, lm_kernels' counted calls for the two flash kernels and
 slstm_fused; the conv2d and conv3d rows also carry kernel_for's split:
@@ -1283,6 +1300,16 @@ def phase_serving(ctx):
         raise AssertionError(f"a kernel was not launched: {counts}")
 
 
+def mbb_problems(fea2d, mesh):
+    """The 60x20 requests of the gateway and workers phases: the MBB load
+    case at four volume fractions and loads. Under the serving generator's
+    top point loads fp32 PCG turns NaN at 60x20 once void regions form, in
+    the JAX package too (tests/test_torch_hybrid.py::
+    test_fp32_pcg_turns_nan_at_60x20_in_both_packages)."""
+    return [fea2d.point_load_problem(*mesh, load=(0.0, -m), volfrac=v)
+            for v, m in ((0.4, 1.0), (0.45, 1.0), (0.5, 1.0), (0.5, 0.8))]
+
+
 def same_params(a, b) -> bool:
     """Two parameter trees hold the same dtypes and bits."""
     import torch
@@ -1339,15 +1366,7 @@ def phase_gateway(ctx):
 
         # -- the gateway: two meshes, a canary promoted part-way through
         small = problems(fea2d, cfg, 8)
-        # 60x20 keeps the MBB load case (at four volume fractions and
-        # loads): under the serving generator's top point loads fp32 PCG
-        # turns NaN at 60x20 once void regions form, in the JAX package
-        # too (tests/test_torch_hybrid.py::
-        # test_fp32_pcg_turns_nan_at_60x20_in_both_packages)
-        large = [fea2d.point_load_problem(*big_mesh, load=(0.0, -m),
-                                          volfrac=v)
-                 for v, m in ((0.4, 1.0), (0.45, 1.0), (0.5, 1.0),
-                              (0.5, 0.8))]
+        large = mbb_problems(fea2d, big_mesh)
         # the serving phase's mix through a bare engine and through a
         # gateway of one bucket, both warm and both read by pool_stats:
         # one untimed run of each, then MIX_RUNS of each in turns
@@ -1490,6 +1509,282 @@ def phase_gateway(ctx):
         raise AssertionError(f"a kernel was not launched: {counts}")
 
 
+def mix_order(small_mesh, big_mesh):
+    """The gateway phase's order of submission: 8 requests on 30x20 and
+    4 on 60x20, interleaved, as (mesh, index into its list)."""
+    order = []
+    for i in range(8):
+        order.append((small_mesh, i))
+        if i < 2 or 4 <= i < 6:
+            order.append((big_mesh, i if i < 2 else i - 2))
+    return order
+
+
+def serve_mix(gw, order, probs, base, n_iter):
+    """One warm run of the mix through ``gw``; (done, wall seconds, each
+    engine's steps in the run by bucket)."""
+    from repro_torch.serve import TopoRequest
+
+    def steps():
+        return {bucket_of(e): e.total_steps for e in gw._all_engines()}
+
+    before = steps()
+    t0 = time.perf_counter()
+    futs = [gw.submit(TopoRequest(uid=base + k, problem=probs[m][i],
+                                  n_iter=n_iter))
+            for k, (m, i) in enumerate(order)]
+    done = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    after = steps()
+    return done, wall, {b: after[b] - before.get(b, 0) for b in after}
+
+
+def dev_of(params):
+    """The device a parameter tree lies on (its first tensor's)."""
+    return next(iter(next(iter(params.values())).values())).device
+
+
+def bucket_of(x) -> str:
+    """A bucket's label, of an engine or of a completion: mesh and tag."""
+    mesh = (x.cfg.nelx, x.cfg.nely) if hasattr(x, "cfg") else x.mesh
+    return f"{mesh[0]}x{mesh[1]}:{x.model_tag}"
+
+
+def ms_per_tick(done, steps) -> dict:
+    """Each bucket's ms a tick in one run: the span from its first
+    admission to its last completion over the steps it took."""
+    out = {}
+    for b, n in steps.items():
+        mine = [r for r in done if bucket_of(r) == b]
+        if mine and n:
+            span = (max(r.admitted_t + r.latency_s for r in mine)
+                    - min(r.admitted_t for r in mine))
+            out[b] = 1e3 * span / n
+    return out
+
+
+def phase_workers(ctx):
+    """The gateway's engines in worker processes at medium's full width:
+    the gateway phase's mix through workers=3 from the registry, bitwise
+    equal to dedicated in-process engines; explicit card params through
+    workers=1, bitwise; both serving kernels launched in the workers (their
+    own counts); kill -9 mid-tick; the mix timed warm in turns through the
+    threaded gateway, workers=3 and workers=1."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import numpy as np
+    from repro_torch.common import init_params
+    from repro_torch.configs.cronet import get_cronet_config
+    from repro_torch.fea import fea2d
+    from repro_torch.serve import (ModelRegistry, TopoGateway, TopoRequest,
+                                   TopoServingEngine, WorkerLost)
+    from repro_torch.serve.types import pool_stats
+    from repro_torch.serve.workers import params_digest
+    dev, cfg = ctx["device"], ctx["cfg"]
+    small_mesh = (cfg.nelx, cfg.nely)
+    big = get_cronet_config("large")
+    big_mesh = (big.nelx, big.nely)
+    n_iter, thr = 20, 0.1
+    probs = {small_mesh: problems(fea2d, cfg, 8),
+             big_mesh: mbb_problems(fea2d, big_mesh)}
+    order = mix_order(small_mesh, big_mesh)
+    versions = {tag: init_params(cfg, seed=seed, device=dev, dtype="float32")
+                for tag, seed in (("v1", 0), ("v2", 1))}
+    explicit = init_params(cfg, seed=2, device=dev, dtype="float32")
+    root = tempfile.mkdtemp(prefix="chip_smoke_workers_")
+    reg = ModelRegistry(root)
+    gateways = {}
+    launches = {}
+    try:
+        for tag, params in versions.items():
+            reg.register(params, cfg, U_SCALE, tag=tag)
+
+        def front(workers):
+            gw = TopoGateway.from_registry(reg, "v1", slots=4, device=dev,
+                                           error_threshold=thr,
+                                           max_pending=64, workers=workers)
+            gw.canary("v2", fraction=0.5, mesh=small_mesh,
+                      auto_rollback=False)
+            return gw
+
+        # the pools spawn eagerly: workers=3 first, then its warm run, so
+        # each worker's spawn-to-first-build is its own start and build
+        t_spawn = time.perf_counter()
+        gateways["workers3"] = front(3)
+        gateways["workers1"] = front(1)
+        gateways["threaded"] = front(None)
+        runs = {label: [] for label in gateways}
+        done_all = []           # (front, completion) of every run
+        warm = ("workers3", "workers1", "threaded")
+        turns = (("threaded", "workers3"),
+                 ("workers3", "workers1", "threaded"),
+                 ("threaded", "workers3"))
+        for n, label in enumerate(warm + sum(turns, ())):
+            done, wall, steps = serve_mix(gateways[label], order, probs,
+                                          1000 * n, n_iter)
+            done_all += [(label, r) for r in done]
+            if n < len(warm):
+                warm_s = time.perf_counter() - t_spawn
+                continue
+            sub = [r for r in done if r.mesh == small_mesh]
+            runs[label].append({
+                "wall_s": wall,
+                "problems_per_s": len(done) / wall,
+                "30x20": {k: pool_stats(sub, wall)[k] for k in (
+                    "problems_per_s", "p50_latency_s", "p99_latency_s")},
+                "all": {k: pool_stats(done, wall)[k] for k in (
+                    "p50_latency_s", "p99_latency_s")},
+                "steps": steps,
+                "ms_per_tick": ms_per_tick(done, steps)})
+        # workers=3 served first: each worker's spawn to the end of its
+        # first build (start, imports, CUDA context, registry read)
+        spawned = {e.details["worker_id"]: e.t_mono
+                   for e in gateways["workers3"].fleet_events("worker-spawn")}
+        first_build = {}
+        for e in gateways["workers3"].fleet_events("worker-lease"):
+            wid = e.details["worker_id"]
+            first_build.setdefault(wid, e.t_mono - spawned[wid])
+        for label in ("workers3", "workers1"):
+            launches[label] = gateways[label]._pool.launch_counts()
+        leases = {label: {bucket_of(e): e.worker_id
+                          for e in gateways[label]._all_engines()}
+                  for label in ("workers3", "workers1")}
+
+        # -- explicit (unregistered) card params through workers=1, then
+        # kill -9 of its worker mid-tick
+        gx = TopoGateway(cfg, explicit, U_SCALE, slots=4, device=dev,
+                         error_threshold=thr, workers=1,
+                         worker_pool_kwargs={"heartbeat_s": 0.5})
+        gateways["explicit"] = gx
+        xdone = [f.result(timeout=600) for f in [
+            gx.submit(TopoRequest(uid=i, problem=probs[small_mesh][i],
+                                  n_iter=n_iter)) for i in range(4)]]
+        proxy = gx.engines[small_mesh]
+        crossed = {"digest_equal": proxy.build_info["params_digest"]
+                   == params_digest(explicit),
+                   "params_devices": proxy.build_info["params_devices"],
+                   "parent_device": str(dev_of(explicit)),
+                   "spec_device": str(proxy.spec["engine_kwargs"]["device"]),
+                   "by_value": "params" in proxy.spec}
+        victim = gx._pool.live_workers()[0]
+        launches["explicit_before_kill"] = gx._pool.launch_counts()
+        long = [gx.submit(TopoRequest(uid=10 + i, problem=probs[small_mesh][i],
+                                      n_iter=1000)) for i in range(4)]
+        queued = [gx.submit(TopoRequest(uid=20 + i,
+                                        problem=probs[small_mesh][4 + i],
+                                        n_iter=n_iter)) for i in range(2)]
+
+        def admitted(uid):
+            with proxy._sched.cond:
+                ent = proxy._pending.get(uid)
+                return ent is not None and ent[2]
+
+        t0 = time.perf_counter()
+        while not all(admitted(10 + i) for i in range(4)):
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("the long requests were never admitted")
+            time.sleep(0.01)
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        lost = []
+        for f in long:
+            try:
+                f.result(timeout=600)
+                lost.append(None)
+            except WorkerLost as exc:
+                lost.append(exc.worker_id)
+        requeued = [f.result(timeout=600) for f in queued]
+        recover_s = time.perf_counter() - t_kill
+        crash = {"victim": victim.worker_id, "lost_worker_ids": lost,
+                 "requeued_worker_ids": [r.worker_id for r in requeued],
+                 "recover_s": recover_s,
+                 "events": [e.kind for e in gx.fleet_events()
+                            if e.kind.startswith("worker-")],
+                 "restarts": gx._pool.stats()["restarts"]}
+        launches["explicit_after_kill"] = gx._pool.launch_counts()
+    finally:
+        for gw in gateways.values():
+            gw.shutdown()
+        leased = reg.leased()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- references: dedicated in-process engines (not counted)
+    def dedicated(params, mesh, reqs):
+        eng = TopoServingEngine(dataclasses.replace(cfg, nelx=mesh[0],
+                                                    nely=mesh[1]), params, U_SCALE, slots=4,
+                                error_threshold=thr, device=dev)
+        refs = eng.run([TopoRequest(uid=k, problem=p, n_iter=n_iter)
+                        for k, p in enumerate(reqs)])
+        eng.shutdown()
+        return refs
+
+    refs = {("v1", small_mesh): dedicated(versions["v1"], small_mesh,
+                                          probs[small_mesh]),
+            ("v2", small_mesh): dedicated(versions["v2"], small_mesh,
+                                          probs[small_mesh]),
+            ("v1", big_mesh): dedicated(versions["v1"], big_mesh,
+                                        probs[big_mesh]),
+            ("x", small_mesh): dedicated(explicit, small_mesh,
+                                         probs[small_mesh][:6])}
+
+    def same(r, ref):
+        return (np.array_equal(r.density, ref.density)
+                and (r.cronet_iters, r.fea_iters, r.cg_iters)
+                == (ref.cronet_iters, ref.fea_iters, ref.cg_iters))
+
+    bitwise = {}
+    for label, r in done_all:
+        mesh, i = order[r.uid % 1000]
+        ok = r.model_tag == r.routed_tag and same(
+            r, refs[(r.model_tag, mesh)][i])
+        key = f"{label}:{mesh[0]}x{mesh[1]}:{r.model_tag}"
+        bitwise[key] = bitwise.get(key, True) and ok
+    bitwise["explicit"] = all(same(r, refs[("x", small_mesh)][i])
+                              for i, r in enumerate(xdone))
+    bitwise["requeued"] = all(same(r, refs[("x", small_mesh)][4 + i])
+                              for i, r in enumerate(requeued))
+    # each worker's own counts (the killed one's as read before the kill)
+    summed = {}
+    for by_worker in launches.values():
+        for counts in by_worker.values():
+            for name, n in counts.items():
+                summed[name] = summed.get(name, 0) + n
+    for name in ("cronet_fused", "solve_b_fused"):
+        ctx["rows"][name]["workers_launches"] = summed[name]
+    report = {
+        "phase": "workers", "cpu_count": os.cpu_count(), "slots": 4,
+        "n_iter": n_iter, "error_threshold": thr,
+        "requests_per_run": len(order), "warm_s": warm_s,
+        "spawn_to_first_build_s": first_build, "leases": leases,
+        "runs": runs, "bitwise": bitwise, "explicit_params": crossed,
+        "crash": crash, "launches": summed,
+        "launches_by_worker": launches, "leased_after": leased}
+    emit(report)
+    unfinished = [r.uid for _, r in done_all if not (
+        r.done and np.all(np.isfinite(r.density)))]
+    if unfinished or not all(bitwise.values()):
+        raise AssertionError(f"unfinished {unfinished}; bitwise {bitwise}")
+    if not (crossed["digest_equal"] and crossed["by_value"]
+            and crossed["params_devices"] == [str(dev_of(explicit))]
+            and dev_of(explicit).type == dev.type):
+        raise AssertionError(f"explicit params did not cross: {crossed}")
+    if set(lost) != {victim.worker_id} or victim.worker_id in \
+            crash["requeued_worker_ids"]:
+        raise AssertionError(f"kill -9: {crash}")
+    for kind in ("worker-lost", "worker-reassign", "worker-requeue"):
+        if kind not in crash["events"]:
+            raise AssertionError(f"no {kind} event: {crash['events']}")
+    if len(set(leases["workers3"].values())) != 3 or leased:
+        raise AssertionError(f"workers=3 leases {leases}, leases left "
+                             f"{leased}")
+    if min(summed["cronet_fused"], summed["solve_b_fused"]) == 0:
+        raise AssertionError(f"a kernel was not launched in a worker: "
+                             f"{launches}")
+
+
 def phase_contracts(ctx):
     import torch
     from repro_torch.common import init_params
@@ -1546,7 +1841,7 @@ def main() -> int:
     t0 = time.perf_counter()
     for phase in (phase_build, phase_kernels, phase_fusion, phase_breakdown,
                   phase_lm_kernels, phase_serving, phase_gateway,
-                  phase_contracts):
+                  phase_workers, phase_contracts):
         try:
             phase(ctx)
         except Exception:

@@ -17,10 +17,39 @@ the JAX package::
     gw.promote(mesh=(30, 20))     # or rollback(); auto-rollback on regression
     gw.shutdown()
 
-The gateway, its engines and the registry loads run on ``device="cuda"``
-unless the caller passes ``device="cpu"``. Worker processes
-(``WorkerPool``) and the serving-data flywheel are not ported yet; the LM
-decode server is not either.
+Multi-process engine workers::
+
+    from repro_torch.serve import TopoGateway, TopoRequest, WorkerLost
+
+    gw = TopoGateway.from_registry(reg, "prod", slots=4,
+                                   workers=3)   # 3 engine processes
+    fut = gw.submit(TopoRequest(uid=0, problem=prob, n_iter=60))
+    req = fut.result()            # req.worker_id says which process
+    try:
+        other = gw.submit(...).result()
+    except WorkerLost as e:       # a worker died mid-tick: typed, with
+        retry(e.worker_id)        # the dead worker's id; never silent
+
+``workers=N`` moves the engine pool into N spawned worker processes
+(serve/workers.py), one interpreter and one CUDA context each: tick
+loops no longer share one GIL, and a tick loop's
+``torch.cuda.synchronize`` waits on its own process's work only. The
+gateway keeps the admission queue, routing, canaries and leases; workers
+lease mesh buckets, build engines locally from the shared on-disk
+registry (or from params pickled by value), and speak a length-prefixed
+pickle RPC over pipes. A request served through a worker is
+BITWISE-equal to the same request on an in-process engine. Robustness:
+heartbeats + deadline-aware RPC timeouts; on a worker crash, admitted
+in-flight requests fail with typed ``WorkerLost`` while never-admitted
+ones requeue in EDF order onto a respawned worker (every future
+resolves); ``worker-*`` FleetEvents narrate spawn/lost/reassign/requeue,
+and completions carry ``worker_id``. Each worker counts its own kernel
+launches (``WorkerPool.launch_counts``).
+
+The gateway, its engines (in a worker too) and the registry loads run on
+``device="cuda"`` unless the caller passes ``device="cpu"``. The
+serving-data flywheel is not ported yet; the LM decode server is not
+either.
 """
 from repro_torch.serve.gateway import TopoGateway
 from repro_torch.serve.registry import (ModelRecord, ModelRegistry,
@@ -31,6 +60,7 @@ from repro_torch.serve.types import (EngineClosed, EngineState, FleetEvent,
                                      QueueFull, RequestShed, TagStats,
                                      TopoFuture, TopoRequest, WorkerLost,
                                      pool_stats, throughput_view)
+from repro_torch.serve.workers import WorkerPool
 
 __all__ = [
     "TopoGateway",
@@ -52,4 +82,5 @@ __all__ = [
     "WorkerLost",
     "pool_stats",
     "throughput_view",
+    "WorkerPool",
 ]

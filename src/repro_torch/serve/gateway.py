@@ -251,9 +251,26 @@ class TopoGateway:
     bucket_window : completion window for the per-bucket acceptance
         stats behind ``bucket_stats()`` (the flywheel's trigger
         signal).
-    workers : move the engine pool into worker processes;
-        ``serve/workers.py`` is not ported yet, so ``workers=`` raises
-        ``NotImplementedError``.
+    workers : move the engine pool into N worker PROCESSES
+        (``serve.workers.WorkerPool``, started with ``spawn``): the
+        gateway keeps the admission queue, routing, canaries and leases,
+        while ticks run in spawned children — one interpreter and one
+        CUDA context each, so tick loops no longer share a GIL or a
+        device-wide ``torch.cuda.synchronize``. Engines are built
+        in-worker from picklable specs (``_engine_spec``: a registry
+        reference when the params came from the registry, the tree by
+        value otherwise); completions carry ``worker_id``; a crashed
+        worker fails only its admitted in-flight work (typed
+        ``WorkerLost``) and requeues the rest in EDF order onto a
+        respawned worker (``worker-*`` FleetEvents narrate every
+        transition). A worker that cannot build its engine fails that
+        bucket's futures with its error; nothing serves in-process in
+        its place. Mutually exclusive with ``engine_factory``.
+        Worker-mode buckets skip LIVE ladder resizing (``ladder`` still
+        sets each worker engine's rungs; only the maintenance-pass
+        ``set_target_slots`` lever is disabled).
+    worker_pool_kwargs : extra ``WorkerPool`` knobs (``heartbeat_s``,
+        ``rpc_timeout_s``, ``respawn``, ...).
     device : where every engine of the pool runs and where registry
         versions are loaded: ``"cuda"`` (default; raises here, at
         construction, without a GPU) or ``"cpu"``. Explicit params must
@@ -285,12 +302,14 @@ class TopoGateway:
                  bucket_window: Optional[int] = 256,
                  trace_every: int = 0,
                  workers: Optional[int] = None,
+                 worker_pool_kwargs: Optional[Dict] = None,
                  device="cuda",
                  **engine_kwargs):
-        if workers is not None:
-            raise NotImplementedError(
-                "workers= needs serve/workers.py, which the port does not "
-                "have yet (ROADMAP.md §A.4); serve in-process instead")
+        if workers is not None and engine_factory is not None:
+            raise ValueError(
+                "workers= moves the gateway's OWN engines into worker "
+                "processes; a caller-supplied engine_factory already "
+                "owns engine construction — pick one")
         # resolved here, in the caller's thread: a missing GPU raises now,
         # not later in the dispatcher thread at the first engine build
         self.device = resolve_device(device)
@@ -402,6 +421,21 @@ class TopoGateway:
             "topo_gateway_inflight",
             "requests offered to the gateway and not yet resolved",
             callback=lambda: self._inflight)
+        # ---- multi-process workers: spawn the pool EAGERLY (each worker
+        # imports torch and opens a CUDA context, seconds each — overlap
+        # that with the caller's own warmup instead of taxing the first
+        # request)
+        self.workers = workers
+        self._pool = None
+        if workers is not None:
+            from repro_torch.serve.workers import WorkerPool
+            self._pool = WorkerPool(
+                int(workers),
+                registry_root=getattr(registry, "root", None),
+                events=self.record_event,
+                on_handoff=self._on_worker_handoff,
+                metrics=self.metrics,
+                **dict(worker_pool_kwargs or {}))
         self._lease(self.model_tag)
 
     @classmethod
@@ -566,9 +600,9 @@ class TopoGateway:
 
     def _engine_spec(self, cfg, mesh: Mesh, tag: Optional[str],
                      params, u_scale, *, slots: int) -> Dict:
-        """Picklable build recipe for an engine built elsewhere (consumed
-        by ``topo_service.engine_from_spec``, as a worker process does in
-        the reference; its ``engine_kwargs`` carry the device). Ships a
+        """Picklable build recipe for a worker-resident engine (consumed
+        by ``topo_service.engine_from_spec`` inside the worker; its
+        ``engine_kwargs`` carry the device). Ships a
         ``registry_root`` REFERENCE instead of the param tree only when
         the resolver cache proves these exact params came from the
         shared on-disk registry — an explicit-params pin (or an
@@ -592,6 +626,10 @@ class TopoGateway:
         mesh = (nelx, nely)
         tag, params, u_scale = self._resolve_bucket_model(mesh)
         cfg = dataclasses.replace(self.cfg, nelx=nelx, nely=nely)
+        if self._pool is not None:
+            return self._pool.build_engine(
+                mesh, self._engine_spec(cfg, mesh, tag, params, u_scale,
+                                        slots=self._slots_for(mesh)))
         return TopoServingEngine(cfg, params, u_scale,
                                  slots=self._slots_for(mesh),
                                  model_tag=tag,
@@ -741,6 +779,8 @@ class TopoGateway:
             # process exiting right after shutdown(): everything still
             # in the sink's in-memory buffer goes to the spool NOW
             self._flush_harvest("shutdown")
+            if self._pool is not None:
+                self._pool.shutdown()
             self._release_all_leases()
             with self._lifecycle:
                 self._running = False
@@ -957,12 +997,20 @@ class TopoGateway:
                                               nely=ctrl.mesh[1])
                     u_scale = (ctrl.u_scale if ctrl.u_scale is not None
                                else self.u_scale)
-                    ce = TopoServingEngine(
-                        cfg, ctrl.params, u_scale,
-                        slots=self.canary_slots, model_tag=ctrl.tag,
-                        ladder=self.ladder,
-                        shape_padded=ctrl.mesh in self._shape_class_set,
-                        **self._engine_kwargs)
+                    if self._pool is not None:
+                        ce = self._pool.build_engine(
+                            ctrl.mesh,
+                            self._engine_spec(cfg, ctrl.mesh, ctrl.tag,
+                                              ctrl.params, u_scale,
+                                              slots=self.canary_slots),
+                            role="canary")
+                    else:
+                        ce = TopoServingEngine(
+                            cfg, ctrl.params, u_scale,
+                            slots=self.canary_slots, model_tag=ctrl.tag,
+                            ladder=self.ladder,
+                            shape_padded=ctrl.mesh in self._shape_class_set,
+                            **self._engine_kwargs)
                 else:
                     ce = self._engine_factory(*ctrl.mesh)
                     if ce is self._engines.get(ctrl.mesh):
@@ -1161,8 +1209,9 @@ class TopoGateway:
     def _flush_harvest(self, reason: str = ""):
         """Push the harvest sink's in-memory buffer to its spool (a
         sink without ``flush`` — or without a buffer — is a no-op).
-        Called on shutdown: records buffered when the gateway closes
-        must not evaporate with the process. A raising sink is
+        Called on shutdown and on worker lease handoff: records
+        buffered in the parent when a worker dies, or when the gateway
+        closes, must not evaporate with the process. A raising sink is
         a ``harvest-error`` event, never a failed shutdown."""
         h = self.harvest
         flush = getattr(h, "flush", None)
@@ -1173,6 +1222,12 @@ class TopoGateway:
         except Exception as exc:
             self._record_event("harvest-error", None, None,
                                reason=f"flush ({reason}) failed: {exc!r}")
+
+    def _on_worker_handoff(self, mesh, worker_id):
+        """WorkerPool callback after a lost worker's bucket was handed
+        to a replacement — durable-spool the harvest so the churn
+        cannot take buffered serving data with it."""
+        self._flush_harvest(f"worker-{worker_id} handoff")
 
     # --------------------------------------------------------- elasticity
 
@@ -1595,6 +1650,8 @@ class TopoGateway:
             if self._closed and self._owns_engines:
                 for eng in self._all_engines():
                     eng.shutdown(wait=False)
+                if self._pool is not None:
+                    self._pool.shutdown()
             if self._closed:
                 # the async shutdown(wait=False) path has nobody else to
                 # flush the harvest buffer before the process may exit

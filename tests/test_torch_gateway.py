@@ -997,14 +997,19 @@ def test_failed_engine_fails_its_futures_and_never_hangs(tparams):
 
 def test_gateway_needs_a_gpu_unless_asked_for_the_cpu_and_has_no_workers(
         tparams):
+    """The card is the default; worker processes only when asked for
+    (``workers=``), and never beside a caller's ``engine_factory``
+    (tests/test_torch_workers.py serves through them)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TopoGateway(CFG, tparams[0], U_SCALE)
-    with pytest.raises(NotImplementedError, match="§A.4"):
-        TopoGateway(CFG, tparams[0], U_SCALE, device="cpu", workers=2)
+    with pytest.raises(ValueError, match="engine_factory"):
+        TopoGateway(CFG, tparams[0], U_SCALE, device="cpu", workers=2,
+                    engine_factory=lambda nelx, nely: None)
     gw = TopoGateway(CFG, tparams[0], U_SCALE, device="cpu")
     assert gw.device == torch.device("cpu")
     assert gw._engine_kwargs["device"] == torch.device("cpu")
+    assert gw.workers is None and gw._pool is None
     gw.shutdown()
 
 

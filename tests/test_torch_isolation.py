@@ -1,7 +1,8 @@
 """The port stands alone: nothing under src/repro_torch/ and nothing in
 chip_smoke.py imports JAX or the JAX package, and the port serves on the
-CPU, through an engine and through the registry and the gateway, in a
-process where importing either would fail."""
+CPU, through an engine, through the registry and the gateway, and through
+a gateway's worker process, in processes where importing either would
+fail."""
 import ast
 import os
 import subprocess
@@ -41,7 +42,7 @@ def test_no_jax_or_reference_imports():
     assert not bad, bad
 
 
-def test_port_serves_with_jax_and_reference_unimportable():
+def test_port_serves_with_jax_and_reference_unimportable(tmp_path):
     code = """
 import sys
 sys.modules["jax"] = None
@@ -85,11 +86,29 @@ assert [r.density.shape for r in got] == [(4, 12), (6, 10), (4, 12)]
 (rec,) = read_snapshots(root + "/telemetry.jsonl")
 assert rec["extra"]["engines"] == 2.0
 assert "topo_completions_total" in rec["metrics"]
+# one request through a spawned worker, which does not inherit the
+# sys.modules entries above: the packages first on PYTHONPATH refuse it
+gw = TopoGateway.from_registry(reg, "v1", slots=2, device="cpu",
+                               error_threshold=1e9, workers=1)
+try:
+    far = gw.submit(TopoRequest(uid=20, problem=fea2d.point_load_problem(
+        12, 4, load_node=(2, 0)), n_iter=4)).result(timeout=120)
+finally:
+    gw.shutdown()
+assert far.worker_id == 0 and far.model_tag == "v1"
+assert far.density.shape == (4, 12)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
-print("served", [round(r.compliance, 3) for r in done + got])
+print("served", [round(r.compliance, 3) for r in done + got + [far]])
 """
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # the spawned worker starts from a fresh interpreter: these stand-ins
+    # come first on its path, so importing jax, jaxlib or repro fails there
+    for mod in FORBIDDEN:
+        (tmp_path / mod).mkdir()
+        (tmp_path / mod / "__init__.py").write_text(
+            f"raise ImportError('{mod} must not be imported by the port')\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(tmp_path), str(ROOT / "src")]))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
