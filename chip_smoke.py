@@ -96,7 +96,8 @@ Phases, one JSON line each on stdout:
      registry through three fronts: TopoGateway(workers=3) (one bucket a
      process), workers=1 (the three tick loops in one worker, the front
      door outside it) and the threaded gateway; one warm run each, then
-     3 / 1 / 3 timed runs in turns, each read by one pool_stats, with
+     3 / 1 / 3 timed runs in turns, each read by one pool_stats, and one
+     more threaded run with the GIL switch interval at 0.5 ms, with
      each bucket's ms a tick (its span over its steps), os.cpu_count()
      and each worker's spawn-to-first-build seconds; every completion of
      every run (densities, CRONet / FEA / CG iterations) bitwise equal
@@ -137,6 +138,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 U_SCALE = 50.0
 MIX_RUNS = 3                    # timed runs of the serving mix, each front
+SHORT_SWITCH_S = 5e-4           # a GIL switch interval 10x below Python's
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # bf16 on the tensor cores, dense
@@ -1616,15 +1618,25 @@ def phase_workers(ctx):
         gateways["workers3"] = front(3)
         gateways["workers1"] = front(1)
         gateways["threaded"] = front(None)
-        runs = {label: [] for label in gateways}
         done_all = []           # (front, completion) of every run
         warm = ("workers3", "workers1", "threaded")
+        # the last run: the threaded front with the interpreter lock
+        # handed over every SHORT_SWITCH_S instead of every 5 ms, which
+        # shows how much of its tick is waiting for the lock
         turns = (("threaded", "workers3"),
                  ("workers3", "workers1", "threaded"),
-                 ("threaded", "workers3"))
+                 ("threaded", "workers3"), ("threaded_short_switch",))
+        runs = {label: [] for label in sum(turns, ())}
+        switch = sys.getswitchinterval()
         for n, label in enumerate(warm + sum(turns, ())):
-            done, wall, steps = serve_mix(gateways[label], order, probs,
-                                          1000 * n, n_iter)
+            short = label.endswith("_short_switch")
+            sys.setswitchinterval(SHORT_SWITCH_S if short else switch)
+            try:
+                done, wall, steps = serve_mix(
+                    gateways[label.replace("_short_switch", "")], order,
+                    probs, 1000 * n, n_iter)
+            finally:
+                sys.setswitchinterval(switch)
             done_all += [(label, r) for r in done]
             if n < len(warm):
                 warm_s = time.perf_counter() - t_spawn
@@ -1758,6 +1770,7 @@ def phase_workers(ctx):
         "phase": "workers", "cpu_count": os.cpu_count(), "slots": 4,
         "n_iter": n_iter, "error_threshold": thr,
         "requests_per_run": len(order), "warm_s": warm_s,
+        "switch_interval_s": {"default": switch, "short": SHORT_SWITCH_S},
         "spawn_to_first_build_s": first_build, "leases": leases,
         "runs": runs, "bitwise": bitwise, "explicit_params": crossed,
         "crash": crash, "launches": summed,
