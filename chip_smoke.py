@@ -1720,6 +1720,9 @@ def phase_workers(ctx):
     finally:
         for gw in gateways.values():
             gw.shutdown()
+        exits = {label: [e.details["exitcode"]
+                         for e in gw.fleet_events("worker-exit")]
+                 for label, gw in gateways.items() if gw.workers}
         leased = reg.leased()
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1774,7 +1777,8 @@ def phase_workers(ctx):
         "spawn_to_first_build_s": first_build, "leases": leases,
         "runs": runs, "bitwise": bitwise, "explicit_params": crossed,
         "crash": crash, "launches": summed,
-        "launches_by_worker": launches, "leased_after": leased}
+        "launches_by_worker": launches, "leased_after": leased,
+        "worker_exitcodes": exits}
     emit(report)
     unfinished = [r.uid for _, r in done_all if not (
         r.done and np.all(np.isfinite(r.density)))]
@@ -1790,6 +1794,8 @@ def phase_workers(ctx):
     for kind in ("worker-lost", "worker-reassign", "worker-requeue"):
         if kind not in crash["events"]:
             raise AssertionError(f"no {kind} event: {crash['events']}")
+    if any(code != 0 for codes in exits.values() for code in codes):
+        raise AssertionError(f"a worker did not exit cleanly: {exits}")
     if len(set(leases["workers3"].values())) != 3 or leased:
         raise AssertionError(f"workers=3 leases {leases}, leases left "
                              f"{leased}")

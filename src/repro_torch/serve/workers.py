@@ -74,6 +74,7 @@ import hashlib
 import os
 import pickle
 import struct
+import sys
 import threading
 import time
 from types import SimpleNamespace
@@ -336,8 +337,14 @@ class EngineWorker:
 
 def _worker_main(conn, worker_id: int):
     """Spawned-process entry point (module-level for pickling under the
-    spawn start method)."""
+    spawn start method). Leaves with ``os._exit`` once the loop ends:
+    the interpreter's own teardown can abort in the CUDA runtime's and
+    torch's native threads (``terminate called ...``), which would turn a
+    clean shutdown into a crashed worker."""
     EngineWorker(conn, worker_id).run()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 # ---------------------------------------------------------- proxy (parent)

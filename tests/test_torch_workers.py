@@ -378,6 +378,9 @@ def test_worker_serves_bitwise_equal_to_in_process_engine(
         stats = gw.throughput_stats(per_mesh=True)
     finally:
         gw.shutdown()
+    # the worker left on its own at shutdown, not by the pool's kill
+    assert [e.details["exitcode"]
+            for e in gw.fleet_events("worker-exit")] == [0]
     for spec, info in infos.values():
         assert ("registry_root" in spec) == (source == "registry")
         assert ("params" in spec) == (source == "explicit")
