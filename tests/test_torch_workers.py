@@ -21,9 +21,9 @@ the gateway's ``workers=``, mirroring tests/test_workers.py.
     cross by value, bit for bit, onto the spec's device.
 
 A spawned child starts with torch's default intra-op thread count, so
-the bitwise cases pin one thread on both sides: ``OMP_NUM_THREADS=1`` in
-the environment the pool spawns under, ``torch.set_num_threads(1)``
-around the in-process run. Each spawn imports torch (~3 s), so worker
+every test pins one thread on both sides (an autouse fixture):
+``OMP_NUM_THREADS=1`` in the environment the pool spawns under,
+``torch.set_num_threads(1)`` around the in-process run. Each spawn imports torch (~3 s), so worker
 counts and respawn rounds stay small. JAX is imported only inside the
 test that compares against it, so the ``cuda`` case runs on a machine
 without it:
@@ -212,11 +212,12 @@ def test_submit_in_flight_to_a_dying_worker_is_requeued_not_failed():
 # --------------------------------------------- real processes on the CPU
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def one_thread(monkeypatch):
-    """One intra-op thread in the test process and in every worker the
-    test spawns: a spawned child does not inherit torch.set_num_threads,
-    and reduction order follows the thread count."""
+    """One intra-op thread in the test process and in every worker a test
+    spawns: a spawned child does not inherit torch.set_num_threads, and
+    reduction order follows the thread count (the bitwise cases); it
+    also keeps the workers from oversubscribing the cores under xdist."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     before = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -351,7 +352,7 @@ def test_worker_interleaving_sweep_no_drops_no_mistags(params, tmp_path):
 
 @pytest.mark.parametrize("source", ["registry", "explicit"])
 def test_worker_serves_bitwise_equal_to_in_process_engine(
-        source, params, tmp_path, one_thread):
+        source, params, tmp_path):
     """Two meshes through one worker: by registry reference (the spec
     carries ``registry_root``, the worker reads the checkpoint) or by
     explicit params (the tree crosses by value). The worker's build
@@ -433,7 +434,7 @@ DENSITY_ATOL = 2e-3
 
 
 def test_workers_gateway_matches_jax_gateway_on_one_registry_version(
-        tmp_path, one_thread):
+        tmp_path):
     """JAX registers a version; the JAX gateway serves it in-process and
     the port's ``workers=1`` gateway through a worker, from the one
     registry on two meshes. Per request the CRONet and FEA iteration
