@@ -99,7 +99,8 @@ Phases, one JSON line each on stdout:
      3 / 1 / 3 timed runs in turns, each read by one pool_stats, and one
      more threaded run with the GIL switch interval at 0.5 ms, with
      each bucket's ms a tick (its span over its steps), os.cpu_count()
-     and each worker's spawn-to-first-build seconds; every completion of
+     and each worker's spawn-to-ready and spawn-to-first-build seconds
+     (a failure prints every pool's worker-* events); every completion of
      every run (densities, CRONet / FEA / CG iterations) bitwise equal
      to a dedicated in-process engine's. Then unregistered card params
      through workers=1: the worker's tree equal to the parent's by
@@ -108,13 +109,34 @@ Phases, one JSON line each on stdout:
      fail with WorkerLost naming it, the two complete on the respawned
      worker, bitwise. cronet_fused and solve_b_fused must launch in the
      worker processes (each worker's counts from its stats verb).
-  9. contracts — one tick at width 4 equals the same slots' tick at width 2
+  9. flywheel — CRONet medium trained on the card in fp32: the default
+     dataset (6 load cases, MBB first, 100 SIMP iterations, through
+     solve_b_fused; every window and target finite), 400 steps of batch
+     16 from init_params(seed 0) with the mean of the last 40 losses below
+     the first 40's, registered by train_and_register and read back
+     bitwise; the first 5 steps again on the host's CPU on the same numpy
+     data (losses within FLY_LOSS_RTOL) and the step-0 gradient against
+     a float64 CPU gradient (each leaf within FLY_GRAD_RTOL of its norm).
+     Then TopoGateway.from_registry(reg, "base", slots=4,
+     harvest=HarvestLog(accept_below=1.0)) at threshold 0.05 serves 16 of
+     the serving generator's requests on 30x20 and a FlywheelController
+     (trigger below 1.01, so a cycle starts whatever the acceptance)
+     carries one cycle: harvest, a 200-step fine-tune with 4 replayed
+     cases, a canary at 0.5 served in rounds of 8 (at most 8 rounds),
+     promotion; the flywheel-trigger/harvest/train/canary/promote events
+     in order, a child with parent "base" on 30x20, its canary
+     completions bitwise equal to a dedicated engine's with its weights,
+     the base weights unchanged; dataset seconds, seconds a step, peak
+     memory (and what was allocated before training), fine-tune
+     seconds, acceptance of base and child; both
+     serving kernels launched in the phase.
+ 10. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
 drives its path: serving for cronet_fused and solve_b_fused (the gateway
 phase's as gateway_launches, the worker processes' of the workers phase
-as workers_launches), fusion (b)
+as workers_launches, the flywheel phase's as flywheel_launches), fusion (b)
 for the per-op kernels, breakdown's layer_breakdown.run for the SiLU
 kernels, lm_kernels' counted calls for the two flash kernels and
 slstm_fused; the conv2d and conv3d rows also carry kernel_for's split:
@@ -1659,6 +1681,10 @@ def phase_workers(ctx):
         for e in gateways["workers3"].fleet_events("worker-lease"):
             wid = e.details["worker_id"]
             first_build.setdefault(wid, e.t_mono - spawned[wid])
+        # spawn to the worker's "ready" (imports done, its loop reading
+        # the pipe): the window in which the heartbeat does not ping it
+        started = {e.details["worker_id"]: e.details["start_s"]
+                   for e in gateways["workers3"].fleet_events("worker-ready")}
         for label in ("workers3", "workers1"):
             launches[label] = gateways[label]._pool.launch_counts()
         leases = {label: {bucket_of(e): e.worker_id
@@ -1717,6 +1743,16 @@ def phase_workers(ctx):
                             if e.kind.startswith("worker-")],
                  "restarts": gx._pool.stats()["restarts"]}
         launches["explicit_after_kill"] = gx._pool.launch_counts()
+    except BaseException:
+        # what the pools saw, for a failure that a worker's loss caused
+        for label, gw in gateways.items():
+            evs = [e for e in gw.fleet_events() if e.kind.startswith("worker-")]
+            if evs:
+                print(f"chip_smoke: {label} worker events: " + json.dumps(
+                    [(e.kind, round(e.t_mono - evs[0].t_mono, 3), e.reason,
+                      e.details) for e in evs], default=str),
+                    file=sys.stderr)
+        raise
     finally:
         for gw in gateways.values():
             gw.shutdown()
@@ -1774,6 +1810,7 @@ def phase_workers(ctx):
         "n_iter": n_iter, "error_threshold": thr,
         "requests_per_run": len(order), "warm_s": warm_s,
         "switch_interval_s": {"default": switch, "short": SHORT_SWITCH_S},
+        "spawn_to_ready_s": started,
         "spawn_to_first_build_s": first_build, "leases": leases,
         "runs": runs, "bitwise": bitwise, "explicit_params": crossed,
         "crash": crash, "launches": summed,
@@ -1802,6 +1839,285 @@ def phase_workers(ctx):
     if min(summed["cronet_fused"], summed["solve_b_fused"]) == 0:
         raise AssertionError(f"a kernel was not launched in a worker: "
                              f"{launches}")
+
+
+FLY_STEPS = 400                 # training steps at medium
+FLY_BATCH = 16
+FLY_PARITY_STEPS = 5            # of them again on the host's CPU
+FLY_LOSS_RTOL = 1e-3            # card vs CPU, each of those steps
+FLY_GRAD_RTOL = 1e-4            # step-0 gradient vs float64, each leaf
+FLY_REQUESTS = 16               # serving requests before the trigger
+FLY_ROUNDS = 8                  # canary rounds at most
+
+
+def leaf_errors(got, want) -> dict:
+    """Per leaf: |got - want| over |want| (L2 norms, in float64)."""
+    import torch
+
+    def norm(t):
+        return float(torch.linalg.norm(t.double().cpu().reshape(-1)))
+
+    return {f"{p}/{k}": norm(got[p][k].double().cpu() - want[p][k].cpu())
+            / norm(want[p][k]) for p in want for k in want[p]}
+
+
+def first_nonfinite(ds, t):
+    """The first SIMP iteration whose densities are not all finite in
+    trajectory ``t`` of a dataset, or None (window w holds iterations
+    w .. w + hist_len - 1)."""
+    import numpy as np
+    rows = ds.rows_of(t)
+    xs = np.concatenate([ds.windows[rows[0], :-1], ds.windows[rows, -1]])
+    bad = [i for i, x in enumerate(xs) if not np.all(np.isfinite(x))]
+    return bad[0] if bad else None
+
+
+def acceptance(reqs) -> float:
+    """Iteration-weighted CRONet acceptance of completed requests."""
+    nn = sum(r.cronet_iters for r in reqs)
+    total = nn + sum(r.fea_iters for r in reqs)
+    return nn / total if total else float("nan")
+
+
+def phase_flywheel(ctx):
+    """CRONet training and one flywheel cycle at medium, fp32, on the
+    card: the default dataset (6 cases, 100 SIMP iterations) through
+    solve_b_fused; FLY_STEPS training steps from init_params(seed 0)
+    with a falling loss, held against the host's CPU on the first steps
+    and against a float64 gradient at step 0; the trained version
+    registered and read back bitwise; then a gateway serving it with a
+    harvest sink, and a FlywheelController carrying one cycle from the
+    trigger to promotion. The canary's completions must be bitwise a
+    dedicated engine's with the child's weights, the base weights
+    untouched, and both serving kernels launched in the phase."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common import map_params
+    from repro_torch.fea import dataset, fea2d, train_cronet
+    from repro_torch.serve import (FlywheelController, HarvestLog,
+                                   ModelRegistry, TopoGateway, TopoRequest,
+                                   TopoServingEngine)
+    dev = ctx["device"]
+    cfg = dataclasses.replace(ctx["cfg"], dtype="float32")
+    mesh = (cfg.nelx, cfg.nely)
+    thr, n_iter = 0.05, 20
+    kernels.reset_launch_counts()
+
+    # -- 1. the dataset, on the card. The default cases' trajectory 5
+    # turns NaN at SIMP iteration 9 in both packages (fp32 PCG, ROADMAP
+    # §C), so a NaN trajectory is reported and training runs on the
+    # finite ones, rebuilt without it: bitwise the same windows, since
+    # run_simp_b's slots do not depend on the batch width
+    t0 = time.perf_counter()
+    full = dataset.build_dataset(cfg, device=dev)
+    sync()
+    dataset_s = time.perf_counter() - t0
+    data_launches = kernels.launch_counts()["solve_b_fused"]
+    first_bad = {t: first_nonfinite(full, t)
+                 for t in range(full.n_trajectories)}
+    kept = [t for t, bad in first_bad.items() if bad is None]
+    data = full
+    if len(kept) < full.n_trajectories:
+        data = dataset.build_dataset(cfg, cases=[full.cases[t] for t in kept],
+                                     device=dev)
+    kept_rows = np.concatenate([full.rows_of(t) for t in kept] + [[]])
+    same_windows = bool(np.array_equal(
+        data.windows, full.windows[kept_rows.astype(np.int64)]))
+    finite = bool(np.all(np.isfinite(data.windows))
+                  and np.all(np.isfinite(data.targets)))
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_flywheel_")
+    try:
+        # -- 2. training (train_and_register: 4. registers it as "base")
+        reg = ModelRegistry(root)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held_bytes = torch.cuda.memory_allocated(dev)   # earlier phases'
+        t0 = time.perf_counter()
+        record, res = train_cronet.train_and_register(
+            cfg, reg, tag="base", steps=FLY_STEPS, batch=FLY_BATCH,
+            data=data, verbose=False, device=dev)
+        train_s = time.perf_counter() - t0
+        peak_bytes = torch.cuda.max_memory_allocated(dev)
+        losses = res.losses
+        first, last = (float(np.mean(losses[:40])),
+                       float(np.mean(losses[-40:])))
+
+        # -- 3. the first steps on the CPU, the step-0 gradient in float64
+        cpu = train_cronet.train(cfg, steps=FLY_PARITY_STEPS,
+                                 batch=FLY_BATCH, data=data, verbose=False,
+                                 device="cpu")
+        loss_rel = [abs(a - b) / abs(b) for a, b in
+                    zip(losses[:FLY_PARITY_STEPS], cpu.losses)]
+        train_traj, _ = dataset.split_by_trajectory(data, 0.25, 0)
+        rows = np.concatenate([data.rows_of(int(t)) for t in train_traj])
+        batch0 = train_cronet.minibatch(data, rows, FLY_BATCH,
+                                        np.random.default_rng(0), 0.01)
+        from repro_torch.common import init_params
+        p0 = init_params(cfg, seed=0, device=dev)
+        _, g_card = train_cronet.loss_and_grad(
+            cfg, p0, *[torch.from_numpy(a).to(dev) for a in batch0])
+        _, g64 = train_cronet.loss_and_grad(
+            cfg, map_params(lambda t: t.double().cpu(), p0),
+            *[torch.from_numpy(a).double() for a in batch0])
+        grad_err = leaf_errors(g_card, g64)
+
+        # -- 4. the registry round trip
+        loaded, _ = reg.load("base", device=dev)
+        roundtrip = same_params(loaded, res.params)
+
+        # -- 5. one flywheel cycle through the gateway
+        log = HarvestLog(accept_below=1.0)
+        gw = TopoGateway.from_registry(reg, "base", slots=4, device=dev,
+                                       error_threshold=thr, harvest=log)
+        base_before = map_params(lambda t: t.clone(), gw.params)
+        fly = FlywheelController(
+            gw, log, trigger_below=1.01, min_completed=8, min_harvest=2,
+            finetune_steps=200, replay_cases=4, canary_fraction=0.5,
+            promote_after=4, promote_margin=-1.0)
+        probs = problems(fea2d, cfg, FLY_REQUESTS)
+        t0 = time.perf_counter()
+        futs = [gw.submit(TopoRequest(uid=i, problem=p, n_iter=n_iter))
+                for i, p in enumerate(probs)]
+        served = [f.result(timeout=600) for f in futs]
+        serve_s = time.perf_counter() - t0
+        ticks = 0
+        t0 = time.perf_counter()
+        while not fly.cycles() and not fly.history and ticks < 4:
+            fly.tick()
+            ticks += 1
+        cycle_s = time.perf_counter() - t0
+        live = fly.cycles().get(f"{mesh[0]}x{mesh[1]}", {})
+        child = live.get("child_tag")
+        canary_done, rounds = [], 0
+        t0 = time.perf_counter()
+        while child and not fly.history and rounds < FLY_ROUNDS:
+            futs = [gw.submit(TopoRequest(uid=1000 * (rounds + 1) + i,
+                                          problem=p, n_iter=n_iter))
+                    for i, p in enumerate(probs[:8])]
+            canary_done += [f.result(timeout=600) for f in futs]
+            rounds += 1
+            fly.tick()
+        canary_s = time.perf_counter() - t0
+        events = [(e.kind, e.t_mono) for e in gw.fleet_events()]
+        base_same = same_params(gw.params, base_before) and \
+            same_params(gw.params, res.params)
+        gw.shutdown()
+        counts = kernels.launch_counts()
+        child_rec = reg.get(child) if child else None
+        child_params = reg.load(child, device=dev)[0] if child else None
+        leased = reg.leased()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- checks against a dedicated engine (launches here do not count)
+    mine = [r for r in canary_done if r.model_tag == child]
+    bitwise = False
+    if mine:
+        eng = TopoServingEngine(cfg, child_params, child_rec.u_scale,
+                                slots=4, error_threshold=thr, device=dev)
+        refs = eng.run([TopoRequest(uid=r.uid, problem=r.problem,
+                                    n_iter=n_iter) for r in mine])
+        eng.shutdown()
+        bitwise = all(np.array_equal(r.density, ref.density)
+                      and (r.cronet_iters, r.fea_iters)
+                      == (ref.cronet_iters, ref.fea_iters)
+                      for r, ref in zip(mine, refs))
+    fly_kinds = [k for k, _ in events if k.startswith("flywheel-")]
+    t_of = {k: t for k, t in events}
+    finetune_s = (t_of["flywheel-canary"] - t_of["flywheel-train"]
+                  if {"flywheel-train", "flywheel-canary"} <= set(t_of)
+                  else None)
+    sides = {"base": [r for r in canary_done if r.model_tag == "base"],
+             "child": mine}
+    report = {
+        "phase": "flywheel", "mesh": f"{mesh[0]}x{mesh[1]}",
+        "weights": sum(t.numel() for w in res.params.values()
+                       for t in w.values()),
+        "dataset": {"seconds": dataset_s, "windows": int(full.n_windows),
+                    "trajectories": full.n_trajectories,
+                    "first_nonfinite_iteration": first_bad,
+                    "train_set": {"trajectories": data.n_trajectories,
+                                  "windows": int(data.n_windows),
+                                  "u_scale": data.u_scale,
+                                  "finite": finite,
+                                  "windows_bitwise_as_in_full": same_windows},
+                    "solve_b_fused_launches": data_launches},
+        "train": {"steps": len(losses), "batch": FLY_BATCH,
+                  "seconds": train_s,
+                  "step_s_median": statistics.median(res.step_s),
+                  "step_s_first": res.step_s[0],
+                  "loss_first40": first, "loss_last40": last,
+                  "loss_final": losses[-1],
+                  "eval": {k: res.eval_metrics[k] for k in (
+                      "eval_mse", "mean_rel_err", "acceptance")},
+                  "max_memory_allocated": peak_bytes,
+                  "memory_allocated_before": held_bytes},
+        "parity": {"loss_rel_card_vs_cpu": loss_rel,
+                   "loss_rtol": FLY_LOSS_RTOL,
+                   "grad_rel_vs_float64": grad_err,
+                   "grad_rtol": FLY_GRAD_RTOL},
+        "registry_roundtrip_bitwise": roundtrip,
+        "flywheel": {
+            "served": len(served), "serve_s": serve_s,
+            "problems_per_s": len(served) / serve_s,
+            "base_acceptance_served": acceptance(served),
+            "ticks_to_cycle": ticks, "cycle_tick_s": cycle_s,
+            "finetune_s": finetune_s, "child": child,
+            "child_parent": child_rec.parent if child_rec else None,
+            "child_mesh": list(child_rec.mesh) if child_rec else None,
+            "child_metrics": {k: child_rec.metrics.get(k) for k in (
+                "eval_mse", "acceptance", "harvested_trajectories")}
+            if child_rec else None,
+            "canary_rounds": rounds, "canary_s": canary_s,
+            "canary_problems_per_s": (len(canary_done) / canary_s
+                                      if canary_s else None),
+            "acceptance_on_bucket": {k: acceptance(v)
+                                     for k, v in sides.items()},
+            "completions": {k: len(v) for k, v in sides.items()},
+            "states": [c.state.value for c in fly.history],
+            "events": fly_kinds, "bitwise_vs_dedicated": bitwise,
+            "base_unchanged": base_same, "leased_after": leased,
+            "harvest": log.snapshot()},
+        "launches": counts}
+    for name in ("cronet_fused", "solve_b_fused"):
+        ctx["rows"][name]["flywheel_launches"] = counts[name]
+    emit(report)
+    want = ["flywheel-trigger", "flywheel-harvest", "flywheel-train",
+            "flywheel-canary", "flywheel-promote"]
+    failures = []
+    if not (finite and same_windows and len(kept) >= 2) \
+            or data_launches == 0:
+        failures.append(f"dataset: finite {finite}, first non-finite "
+                        f"iterations {first_bad}, bitwise {same_windows}, "
+                        f"solve_b_fused {data_launches}")
+    if not (np.all(np.isfinite(losses)) and last < first):
+        failures.append(f"loss did not fall: {first} -> {last}")
+    if max(loss_rel) > FLY_LOSS_RTOL:
+        failures.append(f"card vs CPU losses {loss_rel}")
+    if max(grad_err.values()) > FLY_GRAD_RTOL:
+        failures.append(f"step-0 gradient vs float64 {grad_err}")
+    if not roundtrip:
+        failures.append("registry round trip not bitwise")
+    if fly_kinds != want:
+        failures.append(f"flywheel events {fly_kinds}")
+    if not (child_rec and child_rec.parent == "base"
+            and child_rec.mesh == mesh):
+        failures.append(f"child {child}: {child_rec}")
+    if not (mine and bitwise and all(r.routed_tag == r.model_tag
+                                     for r in served + canary_done)):
+        failures.append(f"canary: {len(mine)} completions, bitwise "
+                        f"{bitwise}")
+    if not base_same or leased:
+        failures.append(f"base unchanged {base_same}, leases {leased}")
+    if min(counts["cronet_fused"], counts["solve_b_fused"]) == 0:
+        failures.append(f"a kernel was not launched: {counts}")
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def phase_contracts(ctx):
@@ -1860,7 +2176,7 @@ def main() -> int:
     t0 = time.perf_counter()
     for phase in (phase_build, phase_kernels, phase_fusion, phase_breakdown,
                   phase_lm_kernels, phase_serving, phase_gateway,
-                  phase_workers, phase_contracts):
+                  phase_workers, phase_flywheel, phase_contracts):
         try:
             phase(ctx)
         except Exception:

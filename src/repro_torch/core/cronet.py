@@ -18,7 +18,11 @@ dispatches to that kernel, which runs plain on CPU tensors.
 Slot invariance: ``forward`` runs the network one slot at a time, so every
 slot sees the same tensor shapes whatever the batch width, and slot b of
 a B-wide call is bitwise the slot computed alone (the JAX oracle gets the
-same property from its per-row GEMV map, cronet.py:128-139).
+same property from its per-row GEMV map, cronet.py:128-139). Serving
+keeps that path. ``forward(..., invariant=False)`` is the training path:
+the whole batch at once (B*T images through the branch convolutions,
+(B, K) @ (K, N) products), differentiable, with a max pool whose gradient
+splits ties evenly, as ``jnp.max``'s does.
 """
 from __future__ import annotations
 
@@ -33,24 +37,35 @@ from repro_torch.configs.cronet import CRONetConfig
 from repro_torch.kernels import ref
 
 
-def _trunk_one(cfg: CRONetConfig, p, load_vol):
+def maxpool2d_ties(x, k: int = 2):
+    """``ref.maxpool2d`` by reshape and ``torch.amax``: the same values,
+    and a gradient split evenly among tied maxima (``F.max_pool2d`` gives
+    it all to one), as the JAX oracle's ``jnp.max`` does
+    (repro/core/cronet.py:82-86). Clipped density histories hold
+    plateaus, so training meets ties."""
+    b, h, w, c = x.shape
+    x = x[:, :(h // k) * k, :(w // k) * k, :]
+    return torch.amax(x.reshape(b, h // k, k, w // k, k, c), dim=(2, 4))
+
+
+def _trunk(cfg: CRONetConfig, p, load_vol):
     x = F.silu(ref.conv3d(load_vol, p["conv1"], "causal_same"))
-    x = F.silu(ref.conv3d(x, p["conv2"], "same"))       # (1, D, H, W, 64)
+    x = F.silu(ref.conv3d(x, p["conv2"], "same"))       # (B, D, H, W, 64)
     x = ref.adaptive_avg_pool3d(x, cfg.t_pool)
-    x = x.reshape(1, -1)                                # (d, h, w, c) order
+    x = x.reshape(x.shape[0], -1)                       # (d, h, w, c) order
     x = F.silu(x @ p["fc1"])
     return x @ p["fc2"]
 
 
-def _branch_one(cfg: CRONetConfig, p, hist):
-    t = hist.shape[1]
-    x = hist.reshape(t, *hist.shape[2:])                # (T, ny, nx, 1)
+def _branch(cfg: CRONetConfig, p, hist):
+    b, t = hist.shape[:2]
+    x = hist.reshape(b * t, *hist.shape[2:])            # (B*T, ny, nx, 1)
     x = F.silu(ref.conv2d_same(x, p["conv1"]))
     x = F.silu(ref.conv2d_same(x, p["conv2"]))
-    x = ref.maxpool2d(x, 2)                             # floor: edge dropped
+    x = maxpool2d_ties(x, 2)                            # floor: edge dropped
     x = ref.adaptive_avg_pool2d(x, cfg.b_pool)
-    feats = x.reshape(1, t, -1)                         # (1, T, 32)
-    h = torch.zeros((1, cfg.rnn_hidden), dtype=feats.dtype,
+    feats = x.reshape(b, t, -1)                         # (B, T, 32)
+    h = torch.zeros((b, cfg.rnn_hidden), dtype=feats.dtype,
                     device=feats.device)
     for i in range(t):
         h = torch.tanh(feats[:, i] @ p["rnn_wx"] + h @ p["rnn_wh"])
@@ -58,22 +73,31 @@ def _branch_one(cfg: CRONetConfig, p, hist):
     return x @ p["fc2"]
 
 
-def trunk_forward(cfg: CRONetConfig, p, load_vol):
+def trunk_forward(cfg: CRONetConfig, p, load_vol, invariant: bool = True):
     """load_vol: (B, 4, ny+1, nx+1, 1) -> (B, p)."""
-    return torch.cat([_trunk_one(cfg, p, load_vol[b:b + 1])
+    if not invariant:
+        return _trunk(cfg, p, load_vol)
+    return torch.cat([_trunk(cfg, p, load_vol[b:b + 1])
                       for b in range(load_vol.shape[0])])
 
 
-def branch_forward(cfg: CRONetConfig, p, hist):
+def branch_forward(cfg: CRONetConfig, p, hist, invariant: bool = True):
     """hist: (B, T, ny, nx, 1) -> (B, p)."""
-    return torch.cat([_branch_one(cfg, p, hist[b:b + 1])
+    if not invariant:
+        return _branch(cfg, p, hist)
+    return torch.cat([_branch(cfg, p, hist[b:b + 1])
                       for b in range(hist.shape[0])])
 
 
-def forward(cfg: CRONetConfig, params: Params, load_vol, hist):
-    """The p-dim Mul output (B, p), in the inputs' dtype."""
-    return (branch_forward(cfg, params["branch"], hist)
-            * trunk_forward(cfg, params["trunk"], load_vol))
+def forward(cfg: CRONetConfig, params: Params, load_vol, hist,
+            invariant: bool = True):
+    """The p-dim Mul output (B, p), in the inputs' dtype.
+
+    ``invariant=True`` runs one slot at a time (bitwise slot-invariant:
+    the serving contract); ``invariant=False`` runs the batch at once
+    for training, where no bitwise batch contract holds."""
+    return (branch_forward(cfg, params["branch"], hist, invariant)
+            * trunk_forward(cfg, params["trunk"], load_vol, invariant))
 
 
 def decode_displacement(cfg: CRONetConfig, u_vec):
@@ -82,7 +106,9 @@ def decode_displacement(cfg: CRONetConfig, u_vec):
     ``jax.image.resize(..., "bilinear")`` does when it downsamples; without
     it the two differ by up to ~2 on random grids."""
     b = u_vec.shape[0]
-    grid = u_vec.reshape(b, 32, 40, 2).float().permute(0, 3, 1, 2)
+    # fp32 (float64 stays float64, for gradient references)
+    dt = torch.promote_types(u_vec.dtype, torch.float32)
+    grid = u_vec.reshape(b, 32, 40, 2).to(dt).permute(0, 3, 1, 2)
     out = F.interpolate(grid, size=cfg.nodes, mode="bilinear",
                         align_corners=False, antialias=True)
     return out.permute(0, 2, 3, 1)

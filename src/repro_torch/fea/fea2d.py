@@ -358,6 +358,12 @@ def load_volume_b(bp: BatchProblem) -> torch.Tensor:
     return vol[..., None].contiguous()
 
 
+def load_volume(prob: Problem) -> torch.Tensor:
+    """(4, nely+1, nelx+1, 1) TrunkNet input of one problem, on the
+    problem's device."""
+    return load_volume_b(stack_problems([prob], device=prob.f.device))[0]
+
+
 def solve_b(bp: BatchProblem, X, tol: float = 1e-6, max_iter: int = 2000,
             U0=None, need=None):
     """Batched Jacobi-PCG with per-slot convergence (``fea2d.solve_b``):

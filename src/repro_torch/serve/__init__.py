@@ -46,11 +46,29 @@ resolves); ``worker-*`` FleetEvents narrate spawn/lost/reassign/requeue,
 and completions carry ``worker_id``. Each worker counts its own kernel
 launches (``WorkerPool.launch_counts``).
 
-The gateway, its engines (in a worker too) and the registry loads run on
-``device="cuda"`` unless the caller passes ``device="cpu"``. The
-serving-data flywheel is not ported yet; the LM decode server is not
-either.
+The serving-data flywheel: train a version, serve it with a harvest
+sink, and let a controller fine-tune, canary and promote a bucket
+specialist from the traffic the surrogate failed on::
+
+    from repro_torch.fea import train_cronet
+    from repro_torch.serve import FlywheelController, HarvestLog
+
+    train_cronet.train_and_register(cfg, reg, tag="base", steps=400)
+    log = HarvestLog(accept_below=0.8, spool_dir="runs/harvest")
+    gw = TopoGateway.from_registry(reg, "base", slots=4, harvest=log)
+    fly = FlywheelController(gw, log, trigger_below=0.5)
+    fly.tick()          # or fly.start(): trigger -> harvest -> train ->
+    #                     canary -> promote / rollback, as flywheel-*
+    #                     FleetEvents in gw.events
+
+The gateway, its engines (in a worker too), the registry loads, dataset
+generation and training run on ``device="cuda"`` unless the caller
+passes ``device="cpu"``; the flywheel trains on its gateway's device.
+The LM decode server is not ported yet.
 """
+from repro_torch.serve.flywheel import (FlywheelController, FlywheelCycle,
+                                        FlywheelState, HarvestLog,
+                                        RegistryRetention)
 from repro_torch.serve.gateway import TopoGateway
 from repro_torch.serve.registry import (ModelRecord, ModelRegistry,
                                         ModelResolver, NoModelError)
@@ -83,4 +101,9 @@ __all__ = [
     "pool_stats",
     "throughput_view",
     "WorkerPool",
+    "HarvestLog",
+    "FlywheelController",
+    "FlywheelState",
+    "FlywheelCycle",
+    "RegistryRetention",
 ]

@@ -45,7 +45,10 @@ Robustness is first-class, not bolted on:
 
   * Worker heartbeats (``ping`` on a daemon cadence) with
     deadline-aware RPC timeouts; a wedged worker is killed and treated
-    as lost.
+    as lost. A worker is pinged only once it has said ``ready`` (its
+    loop reads the pipe): until then it is importing torch, seconds on
+    a busy host, and a ping could only time out. A worker not ready
+    within ``build_timeout_s`` of its spawn counts as wedged.
   * Crash detection (pipe EOF, dead pid, heartbeat timeout) fails
     in-flight futures with a typed ``WorkerLost`` — but ONLY for
     requests that had been admitted to a tick; requests still queued in
@@ -59,7 +62,8 @@ Robustness is first-class, not bolted on:
     ``build`` call with its error, and nothing serves in-process in its
     place.
   * Every transition is a typed ``worker-*`` FleetEvent (``spawn`` /
-    ``lease`` / ``lost`` / ``reassign`` / ``requeue`` / ``exit``)
+    ``ready`` (with its start seconds) / ``lease`` / ``stale`` /
+    ``lost`` / ``reassign`` / ``requeue`` / ``exit``)
     through the gateway's event log, and completions carry
     ``worker_id`` so the obs layer can split per-worker metrics.
 
@@ -306,6 +310,7 @@ class EngineWorker:
     def run(self):
         threading.Thread(target=self._monitor_loop,
                          name="worker-admit-monitor", daemon=True).start()
+        self._send({"kind": "ready", "pid": os.getpid()})
         verbs = {
             "build": self._do_build, "submit": self._do_submit,
             "park": self._do_park, "swap": self._do_swap,
@@ -676,6 +681,9 @@ class _WorkerHandle:
         self._rpc_n = 0
         self._rpcs: Dict[int, _RPC] = {}
         self.lost = False
+        # set by the worker's "ready" frame: its loop is reading the pipe
+        self.ready = threading.Event()
+        self.spawned_t = time.monotonic()
         self.engines: Dict[int, RemoteEngine] = {}   # engine_id -> proxy
         self.proc = ctx.Process(target=_worker_main,
                                 args=(child_conn, worker_id),
@@ -713,6 +721,12 @@ class _WorkerHandle:
                     else:
                         rpc.error = msg.get("error")
                     rpc.ev.set()
+            elif kind == "ready":
+                self.ready.set()
+                self._pool._event(
+                    "worker-ready",
+                    details={"worker_id": self.worker_id,
+                             "start_s": time.monotonic() - self.spawned_t})
             elif kind == "admitted":
                 eng = self.engines.get(msg["engine_id"])
                 if eng is not None:
@@ -794,10 +808,13 @@ class WorkerPool:
                        serving data survives the churn.
     heartbeat_s :      ping cadence; ``0`` disables the monitor thread
                        (crash detection then rests on pipe EOF alone).
+                       Only a worker that has said ``ready`` is pinged.
     rpc_timeout_s :    default synchronous-call timeout. Builds use
                        ``build_timeout_s`` (a first build may run nvcc
                        for a missing kernel library) and submits tighten
-                       to the request's own deadline slack.
+                       to the request's own deadline slack. A worker
+                       not ready within ``build_timeout_s`` of its spawn
+                       is killed as wedged.
     respawn :          keep the pool at ``n_workers`` by spawning a
                        replacement for each lost worker.
     metrics :          obs registry (defaults to the process-wide one);
@@ -1024,9 +1041,20 @@ class WorkerPool:
                 if not w.proc.is_alive():
                     self._on_worker_lost(w, "process died")
                     continue
+                if not w.ready.is_set():
+                    # still starting: its pipe is not read yet, so a
+                    # ping would time out on a worker that is not wedged
+                    if time.monotonic() - w.spawned_t > self.build_timeout_s:
+                        self._event("worker-stale",
+                                    details={"worker_id": w.worker_id,
+                                             "starting": True})
+                        w.kill()
+                    continue
                 try:
                     w.call("ping", timeout=self.heartbeat_timeout_s)
                 except WorkerLost:
+                    if w.lost:
+                        continue     # died during the ping: not stale
                     # wedged (alive but unresponsive past the deadline):
                     # kill it so the loss path runs exactly once, off
                     # the pipe-EOF signal

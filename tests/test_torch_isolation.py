@@ -1,8 +1,8 @@
 """The port stands alone: nothing under src/repro_torch/ and nothing in
 chip_smoke.py imports JAX or the JAX package, and the port serves on the
 CPU, through an engine, through the registry and the gateway, and through
-a gateway's worker process, in processes where importing either would
-fail."""
+a gateway's worker process, builds a dataset, trains, and runs a
+flywheel tick, in processes where importing either would fail."""
 import ast
 import os
 import subprocess
@@ -97,6 +97,30 @@ finally:
     gw.shutdown()
 assert far.worker_id == 0 and far.model_tag == "v1"
 assert far.density.shape == (4, 12)
+# training and the flywheel: a 2-case dataset, 2 steps registered, one
+# controller tick that harvests, fine-tunes and starts a canary
+from repro_torch.fea import dataset, train_cronet
+from repro_torch.serve import FlywheelController, HarvestLog
+tcfg = dataclasses.replace(cfg, dtype="float32")
+data = dataset.build_dataset(tcfg, n_cases=2, n_iter=5, device="cpu")
+rec, res = train_cronet.train_and_register(
+    tcfg, reg, tag="t1", steps=2, batch=2, data=data, verbose=False,
+    device="cpu")
+assert len(res.losses) == 2 and rec.load_cases
+log = HarvestLog(accept_below=1.0)
+gw = TopoGateway.from_registry(reg, "t1", slots=2, device="cpu",
+                               error_threshold=0.05, harvest=log)
+fly = FlywheelController(gw, log, trigger_below=1.01, min_completed=2,
+                         finetune_steps=1, harvest_n_iter=5,
+                         replay_cases=1)
+try:
+    for i in range(2):
+        gw.submit(TopoRequest(uid=30 + i, problem=fea2d.point_load_problem(
+            12, 4, load_node=(3 * i + 1, 0)), n_iter=4)).result(timeout=120)
+    assert fly.tick()
+    assert fly.cycles()["12x4"]["state"] == "canary", fly.status()
+finally:
+    gw.shutdown()
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("served", [round(r.compliance, 3) for r in done + got + [far]])

@@ -51,8 +51,8 @@ from repro_torch.fea import fea2d
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve import (ModelRegistry, TopoGateway, TopoRequest,
                                TopoServingEngine, WorkerLost)
-from repro_torch.serve.workers import (RemoteEngine, _recv_msg, _send_msg,
-                                       params_digest)
+from repro_torch.serve.workers import (RemoteEngine, WorkerPool, _recv_msg,
+                                       _send_msg, params_digest)
 
 U_SCALE = 50.0
 CFG = dataclasses.replace(get_cronet_config("small"), nelx=12, nely=4,
@@ -422,6 +422,32 @@ def test_failed_worker_build_reaches_the_caller(params):
     with pytest.raises(ValueError, match="engine_factory"):
         TopoGateway(CFG, params, U_SCALE, device="cpu", workers=1,
                     engine_factory=lambda nx, ny: None)
+
+
+def test_a_starting_worker_is_not_pinged_to_death():
+    """A worker still importing torch does not read its pipe, so a ping
+    in that window can only time out. The heartbeat waits for the
+    worker's ``ready`` frame: with a ping timeout far below the start
+    time, the worker is neither killed nor respawned, and answers once
+    it has started."""
+    events = []
+    pool = WorkerPool(1, heartbeat_s=0.05, heartbeat_timeout_s=0.3,
+                      metrics=MetricsRegistry(),
+                      events=lambda kind, **kw: events.append(kind))
+    try:
+        handle = pool.live_workers()[0]
+        assert wait_until(handle.ready.is_set, timeout=120), events
+        t_ready = time.monotonic() - handle.spawned_t
+        assert handle.call("ping", timeout=30)["pid"] == handle.proc.pid
+        time.sleep(0.5)                 # ten heartbeats after the start
+        # the first ping went out at 0.05 s and would have timed out
+        assert t_ready > 0.35
+        assert pool.stats()["restarts"] == 0, events
+        assert pool.worker_ids == [handle.worker_id]
+        assert "worker-stale" not in events, events
+        assert events.count("worker-ready") == 1, events
+    finally:
+        pool.shutdown()
 
 
 # ---------------------------------------- beside the JAX gateway itself
