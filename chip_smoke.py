@@ -130,7 +130,26 @@ Phases, one JSON line each on stdout:
      memory (and what was allocated before training), fine-tune
      seconds, acceptance of base and child; both
      serving kernels launched in the phase.
- 10. contracts — one tick at width 4 equals the same slots' tick at width 2
+ 10. lm_serving — granite-3-8b served whole: bf16, 40 layers, every width
+     as published, weights from materialize(seed 0) on the card (16.75
+     GB); launch/serve.py's 8 requests (seed-0 prompts of 4-31 tokens,
+     max_new 16) through ServingEngine(slots 4, max_len 128) twice, every
+     output max_new tokens in [0, vocab) and the same in both runs, with
+     tokens/s and the mean batch latency from throughput_stats; decode ms
+     a step at that cache; 4 prompts of 2,048 tokens prefilled at max_len
+     4096 (the chunked attention path) and decode ms a step there, each
+     beside its bound (weight and cache bytes over 3.35 TB/s), and
+     torch.profiler over 3 decode steps (device ms, idle share, launches).
+     Then depth 2 at full width in fp32, its layers drawn at the full
+     model's scale (std 1/sqrt(40)): prefill(S-1) + decode_step against
+     forward, and the card's forward against the host CPU's on the same
+     weights, each within 1e-4 of max |logit|, and the greedy tokens of 4
+     steps on both, the differing ones counted; the same reported, not
+     gated, at materialize's scale for 2 layers (std 1/sqrt(2)), where
+     the larger scores leave fp32 short of the bar. memory_allocated
+     before and after (all freed). The phase adds no kernel: the JAX LM
+     stack calls none.
+ 11. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
@@ -2120,6 +2139,283 @@ def phase_flywheel(ctx):
         raise AssertionError("; ".join(failures))
 
 
+LM_ARCH = "granite-3-8b"        # the dense configuration one H100 holds whole
+LM_SLOTS, LM_MAX_LEN = 4, 128   # launch/serve.py's defaults
+LM_REQUESTS, LM_MAX_NEW = 8, 16
+LM_LONG = (4, 2048, 4096)       # long prompts: batch, tokens, max_len
+LM_DECODE_REPS = 10             # timed decode steps at each cache
+LM_CHECK_LAYERS = 2             # depth of the fp32 card-vs-CPU check
+LM_CHECK_SHAPE = (2, 16)        # its batch and prompt tokens
+LM_GREEDY_STEPS = 4
+LM_REL_TOL = 1e-4               # of max |logit|, fp32 checks
+LM_PROFILE_STEPS = 3            # decode steps under torch.profiler
+LM_FREE_SLACK = 64 << 20        # bytes the phase may leave allocated
+
+
+def lm_max_err(got, want, vocab: int) -> float:
+    """max |got - want| over the real vocabulary, over max |want| there."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got.cpu() - want.cpu()).abs().max()
+                 / want.abs().max().clamp_min(1e-30).cpu())
+
+
+def lm_decode_ms(D, cfg, params, cache, tok, reps: int):
+    """Event-timed ms a decode step from ``cache`` (advanced in place),
+    and whether every step's logits were finite."""
+    import torch
+    from repro_torch.timing import cuda_ms
+    state = {"cache": cache, "finite": torch.ones((), dtype=torch.bool,
+                                                  device=tok.device)}
+
+    def step():         # no host sync inside: the flag stays on the card
+        lg, state["cache"] = D.decode_step(cfg, params, tok, state["cache"])
+        state["finite"] &= torch.isfinite(lg[..., :cfg.vocab_size]).all()
+
+    return cuda_ms(step, reps=reps), bool(state["finite"])
+
+
+def lm_greedy(D, cfg, params, tokens, steps: int, max_len: int):
+    """Greedy tokens after prefilling ``tokens``: the prefill's, then one
+    a decode step."""
+    import torch
+    lg, cache = D.prefill(cfg, params, {"tokens": tokens}, max_len=max_len)
+    out = []
+    for _ in range(steps):
+        nxt = torch.argmax(lg[:, -1:, :cfg.vocab_size], dim=-1)
+        out.append(nxt)
+        lg, cache = D.decode_step(cfg, params, nxt, cache)
+    return torch.cat(out, dim=1).cpu()
+
+
+def lm_fp32_check(D, M, cfg, specs, toks, dev) -> dict:
+    """The depth-cut fp32 checks on weights drawn from ``specs`` (seed 0)
+    on the card and copied to the host: prefill(S-1) + decode_step
+    against forward at the last position on the card and the card's
+    forward against the CPU's (errors over max |logit|), and the greedy
+    tokens of LM_GREEDY_STEPS steps on both."""
+    import torch
+    from repro_torch.common import map_params, materialize
+    v, ss = cfg.vocab_size, toks.shape[1]
+    p_card = materialize(specs, seed=0, device=dev)
+    p_cpu = map_params(lambda t: t.cpu(), p_card)
+    full, _ = M.forward(cfg, p_card, {"tokens": toks.to(dev)})
+    _, cache = D.prefill(cfg, p_card, {"tokens": toks[:, :-1].to(dev)},
+                         max_len=ss + 4)
+    lg, _ = D.decode_step(cfg, p_card, toks[:, -1:].to(dev), cache)
+    full_cpu, _ = M.forward(cfg, p_cpu, {"tokens": toks})
+    greedy_card = lm_greedy(D, cfg, p_card, toks.to(dev), LM_GREEDY_STEPS,
+                            ss + LM_GREEDY_STEPS)
+    greedy_cpu = lm_greedy(D, cfg, p_cpu, toks, LM_GREEDY_STEPS,
+                           ss + LM_GREEDY_STEPS)
+    return {
+        "max_abs_logit": float(full[..., :v].abs().max()),
+        "decode_vs_forward": lm_max_err(lg[:, 0], full[:, -1], v),
+        "card_vs_cpu_forward": lm_max_err(full, full_cpu, v),
+        "greedy_tokens_differing": int((greedy_card != greedy_cpu).sum()),
+        "greedy_tokens": greedy_card.tolist()}
+
+
+def lm_profile(step, n: int) -> dict:
+    """torch.profiler over ``n`` calls of ``step``: wall and device ms a
+    call (kernel time summed), the device's idle share, launches a call
+    and the five kernels that take the most time."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    step()
+    sync()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    return {"calls": n, "wall_ms_a_call": wall_ms / n,
+            "device_ms_a_call": device_ms / n,
+            "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "launches_a_call": len(kernels) / n,
+            "top_kernels_ms": sorted(by_name.items(),
+                                     key=lambda kv: -kv[1])[:5]}
+
+
+def phase_lm_serving(ctx):
+    """granite-3-8b served whole on the card: bf16, 40 layers, every width
+    as published, weights from materialize(seed 0). launch/serve.py's
+    8 requests (seed-0 prompts of 4-31 tokens, max_new 16) through
+    ServingEngine(slots 4, max_len 128), twice: every output max_new
+    tokens in [0, vocab), the same tokens in both runs. Decode ms a step
+    at that cache and after a prefill of 4 prompts of 2,048 tokens at
+    max_len 4096 (the chunked attention path), beside the bound (weight
+    and cache bytes, each read once, over 3.35 TB/s), and a profile of
+    decode steps. Then granite-3-8b at full width, depth 2, fp32 (TF32
+    off), its layers drawn at the full model's scale: prefill(S-1) +
+    decode_step against forward at the last position, the card's forward
+    against the host CPU's on the same weights (each within LM_REL_TOL of
+    max |logit|), and the greedy tokens of LM_GREEDY_STEPS steps on both,
+    the differing ones counted; the same reported at materialize's scale
+    for the cut depth. Frees what it allocates."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.common import (map_params, materialize, param_bytes,
+                                    param_count)
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode as D
+    from repro_torch.serve.server import ServingEngine
+    dev = ctx["device"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    failures = []
+    cfg = get_config(LM_ARCH)
+    specs = M.param_specs(cfg)
+    weight_bytes = param_bytes(specs)
+    out = {"phase": "lm_serving", "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "weights": param_count(specs),
+           "weight_bytes": weight_bytes, "nvidia_smi": ctx["smi"],
+           "memory_allocated_before": before}
+
+    with torch.inference_mode():
+        # -- 1. the whole model, served twice
+        t0 = time.perf_counter()
+        params = materialize(specs, seed=0, device=dev)
+        sync()
+        out["materialize_s"] = time.perf_counter() - t0
+        out["memory_allocated_weights"] = torch.cuda.memory_allocated(dev)
+        eng = ServingEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                            device=dev)
+        runs = []
+        for _ in range(2):
+            reqs = make_requests(cfg, LM_REQUESTS, LM_MAX_NEW)
+            t0 = time.perf_counter()
+            eng.run(reqs)
+            stats = eng.throughput_stats(reqs)
+            stats["wall_s"] = time.perf_counter() - t0
+            runs.append((reqs, stats))
+        outs = [[r.output for r in reqs] for reqs, _ in runs]
+        in_range = all(len(o) == LM_MAX_NEW and 0 <= int(o.min())
+                       and int(o.max()) < cfg.vocab_size
+                       for o in outs[0] + outs[1])
+        same = all(np.array_equal(a, b) for a, b in zip(*outs))
+        out["runs"] = [s for _, s in runs]
+        out["outputs_first_run"] = [o.tolist() for o in outs[0][:2]]
+        if not (in_range and same):
+            failures.append(f"outputs in range {in_range}, same tokens in "
+                            f"both runs {same}")
+
+        # decode ms a step at the engine's cache: its first group's
+        # prompts, left-padded as the engine pads them
+        group = runs[0][0][:LM_SLOTS]
+        plen = max(len(r.prompt) for r in group)
+        toks = torch.zeros((LM_SLOTS, plen), dtype=torch.long)
+        for i, r in enumerate(group):
+            toks[i, plen - len(r.prompt):] = torch.from_numpy(
+                r.prompt.astype(np.int64))
+        lg, cache = D.prefill(cfg, params, {"tokens": toks.to(dev)},
+                              max_len=LM_MAX_LEN)
+        finite = bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
+        tok = torch.argmax(lg[:, -1:, :cfg.vocab_size], dim=-1)
+        ms, fin = lm_decode_ms(D, cfg, params, cache, tok, LM_DECODE_REPS)
+        state = {"cache": cache}
+
+        def step():
+            _, state["cache"] = D.decode_step(cfg, params, tok,
+                                              state["cache"])
+
+        profile = lm_profile(step, LM_PROFILE_STEPS)
+        cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+        out["decode_128"] = {"profile": profile,
+            "ms_a_step": ms, "cache_bytes": cache_bytes,
+            "bound_ms": (weight_bytes + cache_bytes) / H100_BYTES_PER_S * 1e3,
+            "tokens_per_s_at_slots": LM_SLOTS / ms * 1e3}
+        del cache, state, lg
+        if not (finite and fin):
+            failures.append("non-finite logits at max_len 128")
+
+        # -- 2. long prompts: the chunked prefill, then decode at 4096
+        b, s, max_len = LM_LONG
+        gen = torch.Generator().manual_seed(0)
+        long_toks = torch.randint(0, cfg.vocab_size, (b, s),
+                                  generator=gen).to(dev)
+        prefill_ms = []
+        for _ in range(2):          # the first call also warms up
+            cache = None
+            sync()
+            t0 = time.perf_counter()
+            lg, cache = D.prefill(cfg, params, {"tokens": long_toks},
+                                  max_len=max_len)
+            sync()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        finite = bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
+        tok = torch.argmax(lg[:, -1:, :cfg.vocab_size], dim=-1)
+        ms, fin = lm_decode_ms(D, cfg, params, cache, tok, LM_DECODE_REPS)
+        cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+        out["long"] = {
+            "batch": b, "prompt_tokens": s, "max_len": max_len,
+            "prefill_ms": prefill_ms, "decode_ms_a_step": ms,
+            "cache_bytes": cache_bytes,
+            "decode_bound_ms": (weight_bytes + cache_bytes)
+            / H100_BYTES_PER_S * 1e3,
+            "peak_memory_allocated_in_phase":
+                torch.cuda.max_memory_allocated(dev)}
+        if not (finite and fin):
+            failures.append("non-finite logits after the long prefill")
+        del eng, params, cache, lg, long_toks
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 3. fp32 at full width, depth cut: decode vs forward, card vs
+        # the host's CPU on the same weights. Drawn at the full model's
+        # layer scale (gated) and at materialize's scale for the cut depth
+        # (reported): the reference's rule takes fan_in = shape[0], the
+        # layer count, so cutting 40 layers to 2 makes every layer weight
+        # 4.5x larger (std 1/sqrt(2), not 1/sqrt(40)), attention scores
+        # ~20x larger, and the sharper softmax turns fp32 rounding into
+        # logit changes past the bar
+        cfg2 = dataclasses.replace(cfg, num_layers=LM_CHECK_LAYERS,
+                                   dtype="float32")
+        bb, ss = LM_CHECK_SHAPE
+        toks = torch.randint(0, cfg2.vocab_size, (bb, ss), generator=gen)
+        specs2 = M.param_specs(cfg2)
+        full_scale = dict(specs2, blocks=map_params(
+            lambda sp: dataclasses.replace(sp, init=("scaled", cfg.num_layers))
+            if sp.init == "normal" else sp, specs2["blocks"]))
+        out["fp32_check"] = {
+            "layers": LM_CHECK_LAYERS, "weights": param_count(specs2),
+            "batch": bb, "tokens": ss,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "full_model_scale": lm_fp32_check(D, M, cfg2, full_scale, toks,
+                                              dev),
+            "materialize_depth2_scale": lm_fp32_check(D, M, cfg2, specs2,
+                                                      toks, dev)}
+        chk = out["fp32_check"]["full_model_scale"]
+        if max(chk["decode_vs_forward"], chk["card_vs_cpu_forward"]) \
+                > LM_REL_TOL:
+            failures.append(f"fp32 check over {LM_REL_TOL} of max |logit|: "
+                            f"{chk}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev)
+    out["memory_allocated_after"] = after
+    if after > before + LM_FREE_SLACK:
+        failures.append(f"memory_allocated {before} before, {after} after")
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def phase_contracts(ctx):
     import torch
     from repro_torch.common import init_params
@@ -2176,7 +2472,8 @@ def main() -> int:
     t0 = time.perf_counter()
     for phase in (phase_build, phase_kernels, phase_fusion, phase_breakdown,
                   phase_lm_kernels, phase_serving, phase_gateway,
-                  phase_workers, phase_flywheel, phase_contracts):
+                  phase_workers, phase_flywheel, phase_lm_serving,
+                  phase_contracts):
         try:
             phase(ctx)
         except Exception:

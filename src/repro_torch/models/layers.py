@@ -1,13 +1,16 @@
-"""Grouped-query attention with online-softmax KV chunking.
+"""Shared model layers: RMSNorm, LayerNorm, RoPE, grouped-query attention
+(online-softmax chunked for long sequences), SwiGLU and GELU MLPs,
+embeddings, logits and the cross-entropy loss. A port of
+``repro/models/layers.py``; pure functions of tensors.
 
-A port of ``attention`` and its two paths from ``repro/models/layers.py``;
-the rest of that module (norms, MLPs, embeddings) is not ported. It is the
-plain version of the flash-attention kernel (``kernels/ref.py`` re-exports
-it). Scores are fp32: bf16 operands are widened to fp32 before each
-product, which is what JAX's bf16 contraction with an fp32 accumulator
-computes (a product of two bf16 values is exact in fp32). Masked scores
-are ``NEG_INF`` (-1e30), not -inf, and ``p`` is rounded to v's dtype
-before the PV product, as in the reference.
+The reference's sharding annotations (``constrain``, ``gathered``) are
+no-ops off a mesh and are dropped. ``attention`` is also the plain version
+of the flash-attention kernel (``kernels/ref.py`` re-exports it). Its
+scores are fp32: bf16 operands are widened to fp32 before each product,
+which is what JAX's bf16 contraction with an fp32 accumulator computes (a
+product of two bf16 values is exact in fp32). Masked scores are
+``NEG_INF`` (-1e30), not -inf, and ``p`` is rounded to v's dtype before the
+PV product, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,8 +18,62 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms: fp32 inside, cast back (layers.py:25-41)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE: the head's two halves rotate together, not interleaved pairs
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    i = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) integers. Angles are fp32
+    ``positions * 1/theta^(2i/D)``."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)                 # (D/2,)
+    angles = positions[..., None].float() * freqs                 # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Grouped-query attention with online-softmax KV chunking
+# ---------------------------------------------------------------------------
 
 
 def _mask(sq, kpos, *, causal, window, q_offset, kv_len, device):
@@ -108,3 +165,44 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = _direct_attention(qg, k, v, causal=causal, window=window,
                               q_offset=q_offset, kv_len=kv_len)
     return o.reshape(b, sq, hq, o.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# MLP / embeddings
+# ---------------------------------------------------------------------------
+
+
+def swiglu_mlp(x, w_gate, w_up, w_down):
+    """SwiGLU: silu(x W_g) * (x W_u) W_d."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """``jax.nn.gelu`` defaults to the tanh approximation; PyTorch's
+    default is the exact erf form."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+
+
+def embed(tokens, table):
+    """tokens: (B, S) integers -> (B, S, D)."""
+    return table[tokens.long()]
+
+
+def logits(x, unembed_table, real_vocab: Optional[int] = None):
+    """x: (B, S, D) @ (D, Vpad) -> (B, S, Vpad); padded entries are set to
+    ``NEG_INF`` (-1e30), not -inf, as in the reference."""
+    out = x @ unembed_table
+    if real_vocab is not None and real_vocab < out.shape[-1]:
+        out[..., real_vocab:] = NEG_INF
+    return out
+
+
+def cross_entropy_loss(lgts, labels, real_vocab: int):
+    """Mean next-token CE over valid labels (label == -1 is padding)."""
+    lgts = lgts.float()
+    lse = torch.logsumexp(lgts, dim=-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    picked = torch.gather(lgts, -1, safe[..., None])[..., 0]
+    nll = (lse - picked) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)

@@ -1,0 +1,153 @@
+"""Dense GQA transformer blocks (qwen2.5 / qwen2 / granite / internvl2
+backbone / hubert encoder): a port of ``repro/models/transformer.py``.
+Declarative ParamSpecs + pure apply functions; layers are stacked on a
+leading 'layers' axis and run in a Python loop over it (the reference's
+``scan_layers=False`` path; its ``lax.scan`` computes the same).
+
+KV caches are written in place: the reference's ``lax.dynamic_update_slice``
+on a donated cache (serve/server.py) is an in-place write under XLA. Its
+start index is clamped as JAX clamps it (``_cache_start``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.common import ParamSpec
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+def attn_specs(cfg: ModelConfig, n: int) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = cfg.torch_dtype
+    s = {
+        "wq": ParamSpec((n, d, hq * hd), ("layers", "fsdp", "tp"), "normal", dt),
+        "wk": ParamSpec((n, d, hkv * hd), ("layers", "fsdp", "tp"), "normal", dt),
+        "wv": ParamSpec((n, d, hkv * hd), ("layers", "fsdp", "tp"), "normal", dt),
+        "wo": ParamSpec((n, hq * hd, d), ("layers", "tp_in", "fsdp"), "normal", dt),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((n, hq * hd), ("layers", "tp"), "zeros", dt)
+        s["bk"] = ParamSpec((n, hkv * hd), ("layers", "tp"), "zeros", dt)
+        s["bv"] = ParamSpec((n, hkv * hd), ("layers", "tp"), "zeros", dt)
+    return s
+
+
+def mlp_specs(cfg: ModelConfig, n: int) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = cfg.torch_dtype
+    return {
+        "w_gate": ParamSpec((n, d, f), ("layers", "fsdp", "tp"), "normal", dt),
+        "w_up": ParamSpec((n, d, f), ("layers", "fsdp", "tp"), "normal", dt),
+        "w_down": ParamSpec((n, f, d), ("layers", "tp_in", "fsdp"), "normal", dt),
+    }
+
+
+def block_specs(cfg: ModelConfig, n: int) -> dict:
+    d = cfg.d_model
+    dt = cfg.torch_dtype
+    return {
+        "ln1": ParamSpec((n, d), ("layers", None), "ones", dt),
+        "ln2": ParamSpec((n, d), ("layers", None), "ones", dt),
+        "attn": attn_specs(cfg, n),
+        "mlp": mlp_specs(cfg, n),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+
+def _cache_start(index: int, sq: int, max_len: int) -> int:
+    """Where ``lax.dynamic_update_slice`` writes ``sq`` rows into a
+    ``max_len`` cache at ``index``: JAX clamps the start into
+    ``[0, max_len - sq]``, so a write past the end lands on the last
+    ``sq`` slots and overwrites what was there."""
+    if sq > max_len:
+        raise ValueError(f"{sq} new positions do not fit a cache of {max_len}")
+    return min(max(int(index), 0), max_len - sq)
+
+
+def apply_attn(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, kv_cache: Optional[dict] = None,
+               cache_index=None, window: Optional[int] = None,
+               return_kv: bool = False):
+    """One attention sub-layer. p holds per-layer (unstacked) weights.
+
+    kv_cache: {'k','v'}: (B, Smax, Hkv, hd), written in place when given
+    (decode). Returns (out, kv_cache_or_None).
+    """
+    b, sq, d = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, sq, hq, hd)
+    k = k.reshape(b, sq, hkv, hd)
+    v = v.reshape(b, sq, hkv, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is not None:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        start = _cache_start(cache_index, sq, ck.shape[1])
+        ck[:, start:start + sq] = k
+        cv[:, start:start + sq] = v
+        kv_len = torch.full((b,), int(cache_index) + sq, dtype=torch.int32,
+                            device=x.device)
+        o = L.attention(q, ck, cv, causal=sq > 1, window=window,
+                        q_offset=int(cache_index), kv_len=kv_len)
+        new_cache = kv_cache
+    else:
+        o = L.attention(q, k, v, causal=cfg.decoder, window=window)
+        new_cache = {"k": k, "v": v} if return_kv else None
+    return o.reshape(b, sq, hq * hd) @ p["wo"], new_cache
+
+
+def apply_block(cfg, p, x, positions, *, kv_cache=None, cache_index=None,
+                window=None, return_kv=False):
+    h, new_cache = apply_attn(
+        cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions,
+        kv_cache=kv_cache, cache_index=cache_index, window=window,
+        return_kv=return_kv,
+    )
+    x = x + h
+    x = x + L.swiglu_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                         p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                         p["mlp"]["w_down"])
+    return x, new_cache
+
+
+def layer_params(stacked: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def scan_dense_blocks(cfg, stacked, x, positions, *, kv_cache=None,
+                      cache_index=None, window=None):
+    """Run n stacked dense blocks in order.
+
+    kv_cache here is stacked: {'k','v'}: (n, B, Smax, Hkv, hd), written in
+    place. Returns (x, kv_cache_or_None).
+    """
+    n = stacked["ln1"].shape[0]
+    for i in range(n):
+        layer_cache = (None if kv_cache is None else
+                       {"k": kv_cache["k"][i], "v": kv_cache["v"][i]})
+        x, _ = apply_block(cfg, layer_params(stacked, i), x, positions,
+                           kv_cache=layer_cache, cache_index=cache_index,
+                           window=window)
+    return x, kv_cache

@@ -64,7 +64,9 @@ specialist from the traffic the surrogate failed on::
 The gateway, its engines (in a worker too), the registry loads, dataset
 generation and training run on ``device="cuda"`` unless the caller
 passes ``device="cpu"``; the flywheel trains on its gateway's device.
-The LM decode server is not ported yet.
+
+The LM-decode serving half (``server``, ``decode``), as in the
+reference, is not re-exported here: import those modules directly.
 """
 from repro_torch.serve.flywheel import (FlywheelController, FlywheelCycle,
                                         FlywheelState, HarvestLog,

@@ -1,8 +1,9 @@
 """The port stands alone: nothing under src/repro_torch/ and nothing in
 chip_smoke.py imports JAX or the JAX package, and the port serves on the
 CPU, through an engine, through the registry and the gateway, and through
-a gateway's worker process, builds a dataset, trains, and runs a
-flywheel tick, in processes where importing either would fail."""
+a gateway's worker process, builds a dataset, trains, runs a flywheel
+tick, and serves an LM through ``repro_torch.launch.serve``, in processes
+where importing either would fail."""
 import ast
 import os
 import subprocess
@@ -121,6 +122,11 @@ try:
     assert fly.cycles()["12x4"]["state"] == "canary", fly.status()
 finally:
     gw.shutdown()
+# LM serving: the launcher at the smoke size, on the CPU
+from repro_torch.launch import serve as lm_serve
+lm = lm_serve.main(["--arch", "granite-3-8b", "--smoke", "--device", "cpu",
+                    "--requests", "2", "--max-new", "3"])
+assert [len(r.output) for r in lm] == [3, 3]
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("served", [round(r.compliance, 3) for r in done + got + [far]])

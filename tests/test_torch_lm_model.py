@@ -1,0 +1,163 @@
+"""Port parity for the LM model assembly: repro_torch.models.model against
+repro.models.model on the CPU.
+
+``param_specs`` of all ten configurations at full size (nothing is
+allocated: the trees hold ParamSpecs only), and ``forward`` of every
+dense, vlm and audio configuration at ``reduce()``. The JAX weights cross
+with ``params_from_jax``; inputs come from numpy seeds.
+
+Tolerances: fp32 logits within 1e-4 absolute (tests/test_decode.py's
+bar; logits here are O(1), max |logit| 3-4). bf16 within 2^-4 of max
+|logit| (16 bf16 ulps): the residual stream is rounded to bf16 after
+every sub-layer, four layers deep, and a one-ulp parting of a GEMM output
+(the packages sum in other orders) is carried forward, not corrected.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.common import materialize as jmaterialize
+from repro.common import param_bytes as jparam_bytes
+from repro.common import param_count as jparam_count
+from repro.configs.all import ASSIGNED
+from repro.configs.base import get_config as jget_config
+from repro.models import model as JM
+from repro_torch.common import (ParamSpec, param_bytes, param_count,
+                                params_from_jax, tree_leaves)
+from repro_torch.configs.base import get_config
+from repro_torch.models import model as TM
+
+RUNS = ["qwen2.5-32b", "qwen2-72b", "granite-3-8b", "granite-8b",
+        "internvl2-1b", "hubert-xlarge"]
+NOT_YET = ["deepseek-v3-671b", "granite-moe-3b-a800m", "recurrentgemma-2b",
+           "xlstm-1.3b"]
+F32_ATOL = 1e-4
+BF16_REL = 2.0 ** -4
+
+
+@functools.lru_cache(maxsize=None)
+def pair(name: str, dtype: str = "float32"):
+    """(jax cfg, port cfg, jax params, port params) at reduce(), the JAX
+    package's seed-0 weights carried over."""
+    jc = dataclasses.replace(jget_config(name).reduce(), dtype=dtype)
+    tc = dataclasses.replace(get_config(name).reduce(), dtype=dtype)
+    jp = jmaterialize(JM.param_specs(jc), jax.random.key(0))
+    return jc, tc, jp, params_from_jax(jax.device_get(jp), device="cpu")
+
+
+def batch_for(cfg, b: int, s: int, seed: int = 0) -> dict:
+    """numpy inputs of the family: tokens, (vlm) patch embeddings, (audio)
+    frame embeddings."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal(
+            (b, s, cfg.frontend_dim)).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def as_jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def as_torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _spec_row(spec):
+    dtype = str(spec.dtype).replace("torch.", "") \
+        if isinstance(spec.dtype, torch.dtype) else str(jnp.dtype(spec.dtype))
+    return (tuple(spec.shape), dtype, tuple(spec.logical_axes), spec.init)
+
+
+@pytest.mark.parametrize("name", ASSIGNED)
+def test_param_specs_match_reference_at_full_size(name):
+    mine = TM.param_specs(get_config(name))
+    theirs = JM.param_specs(jget_config(name))
+    rows = {path: _spec_row(s) for path, s in tree_leaves(mine)}
+    want = {path: _spec_row(s) for path, s in tree_leaves(theirs)}
+    assert rows == want
+    assert all(isinstance(s, ParamSpec) for _, s in tree_leaves(mine))
+    assert param_count(mine) == jparam_count(theirs)
+    assert param_bytes(mine) == jparam_bytes(theirs)
+
+
+def test_granite_3_8b_holds_8_37_billion_weights():
+    """40 layers x 199,237,632 + untied embed and unembed of 49,408 x
+    4,096: 16.75 GB in bf16, what one H100 holds whole."""
+    specs = TM.param_specs(get_config("granite-3-8b"))
+    per_layer = param_count(specs["blocks"]) // 40
+    assert per_layer == 199_237_632
+    assert param_count(specs) == 8_374_259_712
+    assert param_bytes(specs) == 2 * 8_374_259_712
+
+
+@pytest.mark.parametrize("name", RUNS)
+def test_forward_matches_reference_fp32(name):
+    jc, tc, jp, tp = pair(name)
+    batch = batch_for(jc, 2, 8)
+    want, jaux = JM.forward(jc, jp, as_jax(batch))
+    got, aux = TM.forward(tc, tp, as_torch(batch))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=F32_ATOL, rtol=0)
+    assert float(aux) == float(jaux) == 0.0
+    hid, _ = TM.forward(tc, tp, as_torch(batch), return_hidden=True)
+    jhid, _ = JM.forward(jc, jp, as_jax(batch), return_hidden=True)
+    np.testing.assert_allclose(to_np(hid), to_np(jhid), atol=F32_ATOL,
+                               rtol=0)
+
+
+def test_forward_matches_reference_bf16():
+    jc, tc, jp, tp = pair("granite-3-8b", "bfloat16")
+    batch = batch_for(jc, 2, 8)
+    want, _ = JM.forward(jc, jp, as_jax(batch))
+    got, _ = TM.forward(tc, tp, as_torch(batch))
+    assert got.dtype == torch.bfloat16
+    v = jc.vocab_size
+    want, got = to_np(want)[..., :v], to_np(got)[..., :v]
+    assert np.abs(got - want).max() <= BF16_REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "internvl2-1b"])
+def test_cache_shapes_match_reference(name):
+    jc, tc, _, _ = pair(name)
+    want = JM.init_cache_shapes(jc, 3, 40)
+    got = TM.init_cache_shapes(tc, 3, 40)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert tuple(got[key].shape) == tuple(want[key].shape), key
+        assert str(got[key].dtype).replace("torch.", "") == \
+            str(want[key].dtype), key
+        assert got[key].device.type == "meta"
+    cache = TM.init_cache(tc, 3, 40, device="cpu")
+    assert cache["index"] == 0
+    assert all(not cache[k].any() for k in ("k", "v"))
+
+
+@pytest.mark.parametrize("name", NOT_YET)
+def test_families_not_ported_raise(name):
+    """moe, hybrid and ssm declare their parameters but do not run yet:
+    forward and the cache raise, naming ROADMAP §A.7; nothing falls
+    back."""
+    cfg = get_config(name).reduce()
+    assert param_count(TM.param_specs(cfg)) > 0
+    with pytest.raises(NotImplementedError, match="§A.7"):
+        TM.forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    with pytest.raises(NotImplementedError, match="§A.7"):
+        TM.init_cache_shapes(cfg, 1, 8)
+    with pytest.raises(NotImplementedError, match="§A.7"):
+        TM.init_cache(cfg, 1, 8, device="cpu")
