@@ -149,7 +149,37 @@ Phases, one JSON line each on stdout:
      the larger scores leave fp32 short of the bar. memory_allocated
      before and after (all freed). The phase adds no kernel: the JAX LM
      stack calls none.
- 11. contracts — one tick at width 4 equals the same slots' tick at width 2
+ 11. lm_moe — the moe family: granite-moe-3b-a800m whole (bf16, 32 layers,
+     40 experts top-8, 3.38B weights, 6.75 GB) and deepseek-v3-671b cut to
+     4 layers (3 dense + 1 MoE; MLA, 1 shared and 256 routed experts,
+     sigmoid top-8, every width as published: 15.8B weights, 31.6 GB),
+     each serving launch/serve.py's 8 requests through ServingEngine(slots
+     4, max_len 128) twice (the same tokens, all in range), with
+     throughput_stats, decode ms a step beside two bounds (every weight
+     and the cache over 3.35 TB/s; the weights one token's path reads) and
+     a profile of decode steps. On deepseek's hidden states (its first
+     group's prefill, recorded by wrapping moe.route), route on the card
+     against the host CPU at d 7168 and 256 experts, with the served
+     router and one at the full model's scale: the card's ids its own
+     scores' top 8 with the lower index first among ties, and equal to
+     the CPU's wherever the 8th and 9th scores differ. Then fp32, TF32
+     off, at the full model's layer scale (gated at 1e-4 of max |logit|
+     or |out|; the cut depth's scale reported): granite-moe at depth 4 at
+     capacity factor 5 (num_experts / top_k: nothing dropped), each block
+     on the card from the host CPU's input to it against the CPU's output
+     (teacher-forced), the unembedding of the CPU's last hidden state, and
+     prefill(S-1) + decode_step against forward over the sequences whose
+     routing agrees (the parted tokens counted); reported, the forward
+     card against CPU end to end beside the host CPU's own spread over
+     summation orders (its forward at 1 thread against all: at this
+     width the attention grows an fp32 rounding difference ~5x a layer,
+     to 2e-4..5e-4 of max |logit| on the CPU alone), and the greedy
+     tokens of 4 steps on both; deepseek's
+     apply_mla on one layer's weights at full width (187M), the absorbed
+     decode step against the materialized form and card against CPU.
+     memory_allocated before and after (all freed). No kernel: the JAX
+     MoE and MLA call none.
+ 12. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
@@ -167,6 +197,7 @@ any phase fails. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -2150,6 +2181,10 @@ LM_GREEDY_STEPS = 4
 LM_REL_TOL = 1e-4               # of max |logit|, fp32 checks
 LM_PROFILE_STEPS = 3            # decode steps under torch.profiler
 LM_FREE_SLACK = 64 << 20        # bytes the phase may leave allocated
+LM_MOE_ARCH = "granite-moe-3b-a800m"    # the moe configuration one H100 holds whole
+LM_MOE_CUT = ("deepseek-v3-671b", 4)    # 3 dense + 1 MoE layer: 31.6 GB bf16,
+                                        # ~47 GB with the fp32 draw of its largest leaf
+LM_MOE_CHECK_LAYERS = 4         # depth of granite-moe's fp32 card-vs-CPU check
 
 
 def lm_max_err(got, want, vocab: int) -> float:
@@ -2215,6 +2250,74 @@ def lm_fp32_check(D, M, cfg, specs, toks, dev) -> dict:
         "greedy_tokens": greedy_card.tolist()}
 
 
+def first_group_tokens(reqs, dev):
+    """The first LM_SLOTS prompts of ``reqs``, left-padded with token 0 as
+    ServingEngine pads a group, on ``dev``."""
+    import numpy as np
+    import torch
+    group = reqs[:LM_SLOTS]
+    plen = max(len(r.prompt) for r in group)
+    toks = torch.zeros((LM_SLOTS, plen), dtype=torch.long)
+    for i, r in enumerate(group):
+        toks[i, plen - len(r.prompt):] = torch.from_numpy(
+            r.prompt.astype(np.int64))
+    return toks.to(dev)
+
+
+def lm_serve_twice(cfg, params, dev, failures) -> dict:
+    """launch/serve.py's LM_REQUESTS requests through
+    ServingEngine(LM_SLOTS, LM_MAX_LEN) twice (every output LM_MAX_NEW
+    tokens in [0, vocab), the same in both runs, or a failure), then decode
+    ms a step and a profile at the cache of the first group's prompts,
+    left-padded as the engine pads them. Returns the runs' stats, the
+    first outputs, ``decode_128`` and the cache's ``cache_bytes``."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import decode as D
+    from repro_torch.serve.server import ServingEngine
+    eng = ServingEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                        device=dev)
+    runs = []
+    for _ in range(2):
+        reqs = make_requests(cfg, LM_REQUESTS, LM_MAX_NEW)
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        stats = eng.throughput_stats(reqs)
+        stats["wall_s"] = time.perf_counter() - t0
+        runs.append((reqs, stats))
+    outs = [[r.output for r in reqs] for reqs, _ in runs]
+    in_range = all(len(o) == LM_MAX_NEW and 0 <= int(o.min())
+                   and int(o.max()) < cfg.vocab_size
+                   for o in outs[0] + outs[1])
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    if not (in_range and same):
+        failures.append(f"{cfg.name}: outputs in range {in_range}, same "
+                        f"tokens in both runs {same}")
+
+    lg, cache = D.prefill(cfg, params,
+                          {"tokens": first_group_tokens(runs[0][0], dev)},
+                          max_len=LM_MAX_LEN)
+    finite = bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
+    tok = torch.argmax(lg[:, -1:, :cfg.vocab_size], dim=-1)
+    ms, fin = lm_decode_ms(D, cfg, params, cache, tok, LM_DECODE_REPS)
+    state = {"cache": cache}
+
+    def step():
+        _, state["cache"] = D.decode_step(cfg, params, tok, state["cache"])
+
+    profile = lm_profile(step, LM_PROFILE_STEPS)
+    if not (finite and fin):
+        failures.append(f"{cfg.name}: non-finite logits at max_len "
+                        f"{LM_MAX_LEN}")
+    return {"runs": [st for _, st in runs],
+            "outputs_first_run": [o.tolist() for o in outs[0][:2]],
+            "decode_128": {"profile": profile, "ms_a_step": ms,
+                           "tokens_per_s_at_slots": LM_SLOTS / ms * 1e3},
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for k, t in cache.items() if k != "index")}
+
+
 def lm_profile(step, n: int) -> dict:
     """torch.profiler over ``n`` calls of ``step``: wall and device ms a
     call (kernel time summed), the device's idle share, launches a call
@@ -2263,15 +2366,12 @@ def phase_lm_serving(ctx):
     for the cut depth. Frees what it allocates."""
     import dataclasses
     import gc
-    import numpy as np
     import torch
     from repro_torch.common import (map_params, materialize, param_bytes,
                                     param_count)
     from repro_torch.configs.base import get_config
-    from repro_torch.launch.serve import make_requests
     from repro_torch.models import model as M
     from repro_torch.serve import decode as D
-    from repro_torch.serve.server import ServingEngine
     dev = ctx["device"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -2293,55 +2393,12 @@ def phase_lm_serving(ctx):
         sync()
         out["materialize_s"] = time.perf_counter() - t0
         out["memory_allocated_weights"] = torch.cuda.memory_allocated(dev)
-        eng = ServingEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
-                            device=dev)
-        runs = []
-        for _ in range(2):
-            reqs = make_requests(cfg, LM_REQUESTS, LM_MAX_NEW)
-            t0 = time.perf_counter()
-            eng.run(reqs)
-            stats = eng.throughput_stats(reqs)
-            stats["wall_s"] = time.perf_counter() - t0
-            runs.append((reqs, stats))
-        outs = [[r.output for r in reqs] for reqs, _ in runs]
-        in_range = all(len(o) == LM_MAX_NEW and 0 <= int(o.min())
-                       and int(o.max()) < cfg.vocab_size
-                       for o in outs[0] + outs[1])
-        same = all(np.array_equal(a, b) for a, b in zip(*outs))
-        out["runs"] = [s for _, s in runs]
-        out["outputs_first_run"] = [o.tolist() for o in outs[0][:2]]
-        if not (in_range and same):
-            failures.append(f"outputs in range {in_range}, same tokens in "
-                            f"both runs {same}")
-
-        # decode ms a step at the engine's cache: its first group's
-        # prompts, left-padded as the engine pads them
-        group = runs[0][0][:LM_SLOTS]
-        plen = max(len(r.prompt) for r in group)
-        toks = torch.zeros((LM_SLOTS, plen), dtype=torch.long)
-        for i, r in enumerate(group):
-            toks[i, plen - len(r.prompt):] = torch.from_numpy(
-                r.prompt.astype(np.int64))
-        lg, cache = D.prefill(cfg, params, {"tokens": toks.to(dev)},
-                              max_len=LM_MAX_LEN)
-        finite = bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
-        tok = torch.argmax(lg[:, -1:, :cfg.vocab_size], dim=-1)
-        ms, fin = lm_decode_ms(D, cfg, params, cache, tok, LM_DECODE_REPS)
-        state = {"cache": cache}
-
-        def step():
-            _, state["cache"] = D.decode_step(cfg, params, tok,
-                                              state["cache"])
-
-        profile = lm_profile(step, LM_PROFILE_STEPS)
-        cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
-        out["decode_128"] = {"profile": profile,
-            "ms_a_step": ms, "cache_bytes": cache_bytes,
-            "bound_ms": (weight_bytes + cache_bytes) / H100_BYTES_PER_S * 1e3,
-            "tokens_per_s_at_slots": LM_SLOTS / ms * 1e3}
-        del cache, state, lg
-        if not (finite and fin):
-            failures.append("non-finite logits at max_len 128")
+        served = lm_serve_twice(cfg, params, dev, failures)
+        cache_bytes = served.pop("cache_bytes")
+        served["decode_128"].update(
+            cache_bytes=cache_bytes,
+            bound_ms=(weight_bytes + cache_bytes) / H100_BYTES_PER_S * 1e3)
+        out.update(served)
 
         # -- 2. long prompts: the chunked prefill, then decode at 4096
         b, s, max_len = LM_LONG
@@ -2371,7 +2428,7 @@ def phase_lm_serving(ctx):
                 torch.cuda.max_memory_allocated(dev)}
         if not (finite and fin):
             failures.append("non-finite logits after the long prefill")
-        del eng, params, cache, lg, long_toks
+        del params, cache, lg, long_toks
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2409,6 +2466,403 @@ def phase_lm_serving(ctx):
     torch.cuda.empty_cache()
     after = torch.cuda.memory_allocated(dev)
     out["memory_allocated_after"] = after
+    if after > before + LM_FREE_SLACK:
+        failures.append(f"memory_allocated {before} before, {after} after")
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Record each call of ``repro_torch.models.moe.route`` while the
+    block runs: its input rows and ids, in call order (the package has no
+    hook; the module's function is wrapped here and put back after)."""
+    from repro_torch.models import moe
+    route, calls = moe.route, []
+
+    def recording(cfg, x, w):
+        out = route(cfg, x, w)
+        calls.append({"x": x, "ids": out[0]})
+        return out
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def at_layer_scale(specs, keys, n: int):
+    """``specs`` with every "normal" leaf under ``keys`` drawn at std
+    1/sqrt(n): the full model's layer scale where the cut depth's
+    ``fan_in = shape[0]`` would draw larger weights."""
+    import dataclasses
+    from repro_torch.common import map_params
+
+    def scaled(sp):
+        return (dataclasses.replace(sp, init=("scaled", n))
+                if sp.init == "normal" else sp)
+
+    return dict(specs, **{k: map_params(scaled, specs[k]) for k in keys})
+
+
+def moe_bounds(cfg, specs, cache_bytes: int) -> dict:
+    """Decode-step bounds over 3.35 TB/s: every weight and the cache read
+    once (the reference's capacity-buffer FFN multiplies every expert each
+    step), and the weights one token's path needs (the embedding table and
+    the MTP module not read, top_k of num_experts routed experts)."""
+    from repro_torch.common import param_bytes
+    every = param_bytes(specs)
+    moe = specs["moe_blocks"]["moe"]
+    experts = param_bytes({k: moe[k] for k in ("wg", "wu", "wd")})
+    unread = param_bytes({k: specs[k] for k in ("mtp",) if k in specs})
+    if not cfg.tie_embeddings:
+        unread += param_bytes({"embed": specs["embed"]})
+    active = every - unread - experts + experts * cfg.top_k / cfg.num_experts
+    return {"bound_all_weights_ms":
+            (every + cache_bytes) / H100_BYTES_PER_S * 1e3,
+            "bound_active_ms": (active + cache_bytes) / H100_BYTES_PER_S * 1e3,
+            "active_weight_bytes": int(active)}
+
+
+def route_check(cfg, x, w, dev) -> dict:
+    """``moe.route`` on the card against the host CPU on rows ``x`` and
+    router ``w`` (fp32): the card's ids must be its own scores' top_k with
+    the lower index first among ties (a numpy lexsort), and equal to the
+    CPU's wherever the CPU's top_k-th and next scores differ; the rest
+    are reported."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    k = cfg.top_k
+    ids, _, _ = moe.route(cfg, x.to(dev), w.to(dev))
+    ids_cpu, _, _ = moe.route(cfg, x.cpu(), w.cpu())
+    sc = torch.sigmoid(x.to(dev).float() @ w.to(dev).float()).cpu().numpy()
+    sc_cpu = torch.sigmoid(x.cpu().float() @ w.cpu().float()).numpy()
+    idx = np.arange(sc.shape[1])
+    want = np.stack([np.lexsort((idx, -row))[:k] for row in sc])
+    ids, ids_cpu = ids.cpu().numpy(), ids_cpu.numpy()
+    top = -np.sort(-sc_cpu, axis=1)
+    gated = top[:, k - 1] > top[:, k]
+    same = (ids == ids_cpu).all(1)
+    return {"rows": int(len(ids)), "experts": int(sc.shape[1]),
+            "saturated_a_row_mean": float((sc == 1.0).sum(1).mean()),
+            "tie_order_on_card": bool((ids == want).all()),
+            "rows_gated": int(gated.sum()),
+            "gated_equal_card_vs_cpu": bool(same[gated].all()),
+            "ungated_equal_card_vs_cpu": int(same[~gated].sum()),
+            "ungated": int((~gated).sum())}
+
+
+def routes_by_sequence(calls, b: int):
+    """Each recorded call's ids as (B, S, k), on the host."""
+    return [c["ids"].cpu().reshape(b, -1, c["ids"].shape[-1]) for c in calls]
+
+
+@contextlib.contextmanager
+def blocks_recorded():
+    """Record each call of the moe family's blocks
+    (``model._dense_block``, ``model._moe_block``) while the block runs:
+    the function's name, its arguments and its output (wrapped here, put
+    back after)."""
+    from repro_torch.models import model as M
+    saved = {n: getattr(M, n) for n in ("_dense_block", "_moe_block")}
+    calls = []
+
+    def recording(name):
+        def call(cfg, p, x, positions, **kw):
+            out = saved[name](cfg, p, x, positions, **kw)
+            calls.append((name, p, x, positions, out))
+            return out
+        return call
+
+    for name in saved:
+        setattr(M, name, recording(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(M, name, fn)
+
+
+def moe_fp32_check(cfg, specs, toks, dev) -> dict:
+    """The moe family's fp32 checks on weights drawn from ``specs`` (seed
+    0) on the card and copied to the host, with every route call
+    recorded. Gated by the caller: each block on the card from the host
+    CPU's input to it, against the CPU's output (teacher-forced: the
+    block's own error, errors over its max |out|; MoE blocks whose
+    routing agrees), the unembedding of the CPU's last hidden state, and
+    prefill(S-1) + decode_step against forward at the last position on
+    the card over the sequences whose routing agrees (errors over max
+    |logit|). Reported: forward on the card against the CPU's end to end
+    (over the sequences whose routing agrees, the parted tokens counted)
+    beside the CPU's own spread (its forward at one thread against all),
+    and the greedy tokens of LM_GREEDY_STEPS steps on both."""
+    import torch
+    from repro_torch.common import map_params, materialize
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode as D
+    v, (b, ss) = cfg.vocab_size, toks.shape
+    p_card = materialize(specs, seed=0, device=dev)
+    p_cpu = map_params(lambda t: t.cpu(), p_card)
+    with routes_recorded() as fwd:
+        full, _ = M.forward(cfg, p_card, {"tokens": toks.to(dev)})
+    with routes_recorded() as fwd_cpu, blocks_recorded() as blocks:
+        hidden_cpu, _ = M.forward(cfg, p_cpu, {"tokens": toks},
+                                  return_hidden=True)
+    full_cpu = M.unembed_logits(cfg, p_cpu, hidden_cpu)
+    with routes_recorded() as dec:
+        _, cache = D.prefill(cfg, p_card, {"tokens": toks[:, :-1].to(dev)},
+                             max_len=ss + 4)
+        lg, _ = D.decode_step(cfg, p_card, toks[:, -1:].to(dev), cache)
+
+    def err(got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        return float((got - want).abs().max() / want.abs().max())
+
+    # each block on the card from the CPU's input to it
+    with routes_recorded() as replay:
+        outs = [getattr(M, name)(cfg, map_params(lambda t: t.to(dev), p),
+                                 x.to(dev), pos.to(dev))
+                for name, p, x, pos, _ in blocks]
+    moe_calls = iter(zip(fwd_cpu, replay))
+    block_errs = []
+    for (name, _, _, _, want), got in zip(blocks, outs):
+        if name == "_moe_block":
+            a, c = next(moe_calls)
+            if not torch.equal(a["ids"].cpu(), c["ids"].cpu()):
+                block_errs.append(None)        # routing parted: not gated
+                continue
+            got, want = got[0], want[0]
+        block_errs.append(err(got, want))
+    unembed_err = lm_max_err(M.unembed_logits(cfg, p_card,
+                                              hidden_cpu.to(dev)),
+                             full_cpu, v)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one_thread, _ = M.forward(cfg, p_cpu, {"tokens": toks})
+    finally:
+        torch.set_num_threads(threads)
+
+    n = len(fwd)
+    card, host = routes_by_sequence(fwd, b), routes_by_sequence(fwd_cpu, b)
+    pre = routes_by_sequence(dec, b)        # the prefill's n, then the step's
+    stepped = [torch.cat([pre[i], pre[n + i]], 1) for i in range(n)]
+
+    def agreeing(a, c):
+        parted = torch.stack([(x != y).any(-1) for x, y in zip(a, c)])
+        return ~parted.any(0).any(-1), int(parted.sum())
+
+    seq_cpu, parted_cpu = agreeing(card, host)
+    seq_dec, parted_dec = agreeing(card, stepped)
+    greedy_card = lm_greedy(D, cfg, p_card, toks.to(dev), LM_GREEDY_STEPS,
+                            ss + LM_GREEDY_STEPS)
+    greedy_cpu = lm_greedy(D, cfg, p_cpu, toks, LM_GREEDY_STEPS,
+                           ss + LM_GREEDY_STEPS)
+    seq_dec_dev = seq_dec.to(dev)
+    return {
+        "max_abs_logit": float(full[..., :v].abs().max()),
+        "blocks_card_vs_cpu_teacher_forced": block_errs,
+        "unembed_card_vs_cpu": unembed_err,
+        "card_vs_cpu_forward": (lm_max_err(full[seq_cpu.to(dev)],
+                                           full_cpu[seq_cpu], v)
+                                if seq_cpu.any() else None),
+        "cpu_one_thread_vs_all": lm_max_err(one_thread, full_cpu, v),
+        "cpu_threads": threads,
+        "sequences_gated_card_vs_cpu": int(seq_cpu.sum()),
+        "token_layers_parted_card_vs_cpu": parted_cpu,
+        "decode_vs_forward": (lm_max_err(lg[seq_dec_dev, 0],
+                                         full[seq_dec_dev, -1], v)
+                              if seq_dec.any() else None),
+        "sequences_gated_decode_vs_forward": int(seq_dec.sum()),
+        "token_layers_parted_decode_vs_forward": parted_dec,
+        "route_calls_a_forward": n,
+        "greedy_tokens_differing": int((greedy_card != greedy_cpu).sum()),
+        "greedy_tokens": greedy_card.tolist()}
+
+
+def mla_check(cfg, n_scale: int, shape, dev) -> dict:
+    """``mla.apply_mla`` on one layer's weights at full width in fp32,
+    drawn at std 1/sqrt(n_scale) (seed 0): the absorbed decode step after
+    a materialized prefill of S-1 tokens against the materialized form over
+    S tokens at the last position, on the card; and the card's
+    materialized form against the host CPU's on the same weights (errors
+    over max |out|)."""
+    import torch
+    from repro_torch.common import map_params, materialize
+    from repro_torch.models import mla
+    from repro_torch.models.transformer import layer_params
+    b, s = shape
+    specs = at_layer_scale({"attn": mla.mla_specs(cfg, 1)}, ("attn",),
+                           n_scale)
+    p = layer_params(materialize(specs, seed=0, device=dev)["attn"], 0)
+    p_cpu = map_params(lambda t: t.cpu(), p)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((b, s, cfg.d_model), generator=gen)
+    pos = torch.arange(s, dtype=torch.int32).expand(b, s)
+    full, _ = mla.apply_mla(cfg, p, x.to(dev), pos.to(dev))
+    cache = {"ckv": torch.zeros((b, s + 4, cfg.kv_lora_rank), device=dev),
+             "krope": torch.zeros((b, s + 4, cfg.qk_rope_head_dim),
+                                  device=dev)}
+    mla.apply_mla(cfg, p, x[:, :-1].to(dev), pos[:, :-1].to(dev),
+                  kv_cache=cache, cache_index=0)
+    step, _ = mla.apply_mla(cfg, p, x[:, -1:].to(dev), pos[:, -1:].to(dev),
+                            kv_cache=cache, cache_index=s - 1)
+    full_cpu, _ = mla.apply_mla(cfg, p_cpu, x, pos)
+
+    def err(got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        return float((got - want).abs().max() / want.abs().max())
+
+    return {"weights": sum(t.numel() for t in p.values()), "batch": b,
+            "tokens": s, "max_abs_out": float(full_cpu.abs().max()),
+            "absorbed_vs_materialized": err(step[:, 0], full[:, -1]),
+            "card_vs_cpu": err(full, full_cpu)}
+
+
+def phase_lm_moe(ctx):
+    """The moe family served on the card. (a) granite-moe-3b-a800m whole:
+    bf16, 32 layers, 40 experts top-8, every width as published, weights
+    from materialize(seed 0); (b) deepseek-v3-671b cut to LM_MOE_CUT's 4
+    layers (3 dense + 1 MoE: MLA, 1 shared and 256 routed experts,
+    sigmoid top-8, every width as published). Each serves launch/serve.py's
+    requests through ServingEngine twice (the same tokens in both runs,
+    all in range), with decode ms a step, a profile and two bounds. On
+    deepseek's hidden states (the first group's prefill, recorded), route
+    on the card against the CPU at d 7168 and 256 experts, with its own
+    router and one drawn at the full model's scale. (c) fp32, TF32 off,
+    at the full model's layer scale (gated at LM_REL_TOL of max |logit|
+    or |out|), the cut depth's scale reported: granite-moe at depth 4 at a
+    capacity factor of num_experts / top_k (no assignment dropped), its
+    blocks card against CPU teacher-forced and decode against forward
+    (moe_fp32_check); deepseek's apply_mla on one layer at full width,
+    absorbed decode against the materialized form and card against CPU.
+    Frees what it allocates."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.common import materialize, param_bytes, param_count
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve import decode as D
+    dev = ctx["device"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    failures = []
+    out = {"phase": "lm_moe", "nvidia_smi": ctx["smi"],
+           "memory_allocated_before": before}
+
+    def served(cfg):
+        specs = M.param_specs(cfg)
+        t0 = time.perf_counter()
+        params = materialize(specs, seed=0, device=dev)
+        sync()
+        res = {"arch": cfg.name, "dtype": cfg.dtype,
+               "layers": cfg.num_layers,
+               "dense_layers": cfg.num_dense_layers,
+               "experts": cfg.num_experts, "top_k": cfg.top_k,
+               "shared_experts": cfg.num_shared_experts,
+               "mla": cfg.use_mla, "weights": param_count(specs),
+               "weight_bytes": param_bytes(specs),
+               "materialize_s": time.perf_counter() - t0,
+               "memory_allocated_weights": torch.cuda.memory_allocated(dev),
+               "peak_memory_allocated_materialize":
+                   torch.cuda.max_memory_allocated(dev)}
+        res.update(lm_serve_twice(cfg, params, dev, failures))
+        cache_bytes = res.pop("cache_bytes")
+        res["decode_128"].update(cache_bytes=cache_bytes,
+                                 **moe_bounds(cfg, specs, cache_bytes))
+        return res, params
+
+    with torch.inference_mode():
+        # -- (a) granite-moe-3b-a800m whole
+        out["granite_moe"], params = served(get_config(LM_MOE_ARCH))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (b) deepseek-v3-671b cut in depth, every width as published
+        name, layers = LM_MOE_CUT
+        full_cfg = get_config(name)
+        cfg = dataclasses.replace(full_cfg, num_layers=layers)
+        ds, params = served(cfg)
+        ds["cut"] = {"num_layers": [full_cfg.num_layers, layers],
+                     "moe_layers": [full_cfg.num_layers
+                                    - full_cfg.num_dense_layers,
+                                    layers - cfg.num_dense_layers],
+                     "widths": "as published"}
+        toks = first_group_tokens(make_requests(cfg, LM_REQUESTS,
+                                                LM_MAX_NEW), dev)
+        with routes_recorded() as calls:
+            D.prefill(cfg, params, {"tokens": toks}, max_len=LM_MAX_LEN)
+        x = calls[0]["x"]
+        n_moe = full_cfg.num_layers - full_cfg.num_dense_layers
+        router_full = materialize(at_layer_scale(
+            {"r": MOE.moe_specs(cfg, 1, True)["router"]}, ("r",), n_moe),
+            seed=1, device=dev)["r"][0]
+        ds["route"] = {
+            "served_router_std_1": route_check(
+                cfg, x, params["moe_blocks"]["moe"]["router"][0], dev),
+            "full_model_scale": route_check(cfg, x, router_full, dev)}
+        for key, chk in ds["route"].items():
+            if not (chk["tie_order_on_card"]
+                    and chk["gated_equal_card_vs_cpu"]):
+                failures.append(f"deepseek route {key}: {chk}")
+        ds["peak_memory_allocated_in_phase"] = \
+            torch.cuda.max_memory_allocated(dev)
+        out["deepseek_cut"] = ds
+        del params, calls, x, router_full
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (c) fp32 at the full model's layer scale (gated) and at the cut
+        # depth's (reported)
+        gm = get_config(LM_MOE_ARCH)
+        no_drop = gm.num_experts / gm.top_k
+        cfg4 = dataclasses.replace(gm, num_layers=LM_MOE_CHECK_LAYERS,
+                                   dtype="float32",
+                                   moe_capacity_factor=no_drop)
+        gen = torch.Generator().manual_seed(0)
+        toks = torch.randint(0, cfg4.vocab_size, LM_CHECK_SHAPE,
+                             generator=gen)
+        specs4 = M.param_specs(cfg4)
+        chk = moe_fp32_check(cfg4, at_layer_scale(specs4, ("moe_blocks",),
+                                                  gm.num_layers), toks, dev)
+        ds32 = dataclasses.replace(full_cfg, dtype="float32")
+        mla_full = mla_check(ds32, n_moe, LM_CHECK_SHAPE, dev)
+        out["fp32_check"] = {
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "granite_moe": {
+                "layers": LM_MOE_CHECK_LAYERS, "weights": param_count(specs4),
+                "batch": LM_CHECK_SHAPE[0], "tokens": LM_CHECK_SHAPE[1],
+                "capacity_factor": no_drop,
+                "full_model_scale": chk,
+                "materialize_depth4_scale": moe_fp32_check(cfg4, specs4,
+                                                           toks, dev)},
+            "deepseek_mla_layer": {
+                "full_model_scale": mla_full,
+                "materialize_depth4_scale": mla_check(ds32, 1,
+                                                      LM_CHECK_SHAPE, dev)}}
+        gated = [e for e in chk["blocks_card_vs_cpu_teacher_forced"]
+                 if e is not None]
+        errs = [max(gated, default=None), chk["unembed_card_vs_cpu"],
+                chk["decode_vs_forward"],
+                mla_full["absorbed_vs_materialized"], mla_full["card_vs_cpu"]]
+        if any(e is None or e > LM_REL_TOL for e in errs):
+            failures.append(f"fp32 checks over {LM_REL_TOL}: {errs}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev)
+    out["memory_allocated_after"] = after
+    out["peak_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     if after > before + LM_FREE_SLACK:
         failures.append(f"memory_allocated {before} before, {after} after")
     emit(out)
@@ -2473,7 +2927,7 @@ def main() -> int:
     for phase in (phase_build, phase_kernels, phase_fusion, phase_breakdown,
                   phase_lm_kernels, phase_serving, phase_gateway,
                   phase_workers, phase_flywheel, phase_lm_serving,
-                  phase_contracts):
+                  phase_lm_moe, phase_contracts):
         try:
             phase(ctx)
         except Exception:

@@ -6,10 +6,11 @@ API (pure functions of (cfg, params, ...)):
   init_cache_shapes(cfg, batch, maxlen)  -> tree of "meta" tensors
   init_cache(cfg, batch, maxlen, device) -> zeroed cache, index 0
 
-``forward`` and the caches run the families ``dense``, ``vlm`` and
-``audio``. ``moe``, ``hybrid`` and ``ssm`` declare their parameters here
-(so every configuration's ``param_specs`` ports) and raise
-``NotImplementedError`` elsewhere until their slice (ROADMAP §A.7).
+``forward`` and the caches run the families ``dense``, ``vlm``,
+``audio`` and ``moe`` (MoE and MLA: ``moe_layers``). ``hybrid`` and
+``ssm`` declare their parameters here (so every configuration's
+``param_specs`` ports) and raise ``NotImplementedError`` elsewhere until
+their slice (ROADMAP §A.7.2).
 
 The cache's ``index`` is a Python int, not a device scalar: slicing the
 cache needs it on the host, and a device scalar would cost a sync a step.
@@ -24,9 +25,11 @@ import torch.nn.functional as F
 from repro_torch.common import ParamSpec, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 
-RUNS = ("dense", "vlm", "audio")
+RUNS = ("dense", "vlm", "audio", "moe")
 
 
 def not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
@@ -37,49 +40,9 @@ def not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
 
 # ---------------------------------------------------------------------------
 # Param specs of the families not ported yet: copies of the reference's
-# mla_specs (mla.py:22), moe_specs (moe.py:31), rglru_specs
-# (recurrent.py:29), mlstm_specs (:113) and slstm_specs (:268). Their apply
-# functions come with their slices (ROADMAP §A.7).
+# rglru_specs (recurrent.py:29), mlstm_specs (:113) and slstm_specs
+# (:268). Their apply functions come with their slice (ROADMAP §A.7.2).
 # ---------------------------------------------------------------------------
-
-
-def _mla_specs(cfg: ModelConfig, n: int) -> dict:
-    d, h = cfg.d_model, cfg.num_heads
-    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
-    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    dt = cfg.torch_dtype
-    return {
-        "wdq": ParamSpec((n, d, qr), ("layers", "fsdp", None), "normal", dt),
-        "q_norm": ParamSpec((n, qr), ("layers", None), "ones", dt),
-        "wuq": ParamSpec((n, qr, h * (dn + dr)), ("layers", "fsdp", "tp"), "normal", dt),
-        "wdkv": ParamSpec((n, d, kvr), ("layers", "fsdp", None), "normal", dt),
-        "kv_norm": ParamSpec((n, kvr), ("layers", None), "ones", dt),
-        "wkr": ParamSpec((n, d, dr), ("layers", "fsdp", None), "normal", dt),
-        "wuk": ParamSpec((n, kvr, h * dn), ("layers", None, "tp"), "normal", dt),
-        "wuv": ParamSpec((n, kvr, h * dv), ("layers", None, "tp"), "normal", dt),
-        "wo": ParamSpec((n, h * dv, d), ("layers", "tp_in", "fsdp"), "normal", dt),
-    }
-
-
-def _moe_specs(cfg: ModelConfig, n: int, ep: bool) -> dict:
-    d, e, f = cfg.d_model, cfg.num_experts, cfg.d_ff_expert
-    dt = cfg.torch_dtype
-    exp_axes = ("layers", "expert", "fsdp", None) if ep else ("layers", None, "fsdp", "tp")
-    exp_axes_dn = ("layers", "expert", None, "fsdp") if ep else ("layers", None, "tp_in", "fsdp")
-    s = {
-        "router": ParamSpec((n, d, e), ("layers", None, None), "normal", torch.float32),
-        "wg": ParamSpec((n, e, d, f), exp_axes, "normal", dt),
-        "wu": ParamSpec((n, e, d, f), exp_axes, "normal", dt),
-        "wd": ParamSpec((n, e, f, d), exp_axes_dn, "normal", dt),
-    }
-    if cfg.num_shared_experts:
-        fs = f * cfg.num_shared_experts
-        s["shared"] = {
-            "wg": ParamSpec((n, d, fs), ("layers", "fsdp", "tp"), "normal", dt),
-            "wu": ParamSpec((n, d, fs), ("layers", "fsdp", "tp"), "normal", dt),
-            "wd": ParamSpec((n, fs, d), ("layers", "tp_in", "fsdp"), "normal", dt),
-        }
-    return s
 
 
 def _rglru_specs(cfg: ModelConfig, n: int) -> dict:
@@ -187,7 +150,7 @@ def param_specs(cfg: ModelConfig) -> dict:
     specs: Dict[str, Any] = _embedding_specs(cfg)
     n = cfg.num_layers
     dt = cfg.torch_dtype
-    if cfg.family in RUNS:
+    if cfg.family in ("dense", "vlm", "audio"):
         specs["blocks"] = T.block_specs(cfg, n)
         if cfg.family == "vlm":
             specs["projector"] = {
@@ -202,12 +165,12 @@ def param_specs(cfg: ModelConfig) -> dict:
     elif cfg.family == "moe":
         nd, nm = cfg.num_dense_layers, n - cfg.num_dense_layers
         ep = cfg.num_experts % 16 == 0  # production model-axis = 16
-        attn_fn = _mla_specs if cfg.use_mla else T.attn_specs
+        attn_fn = MLA.mla_specs if cfg.use_mla else T.attn_specs
         if nd:
             specs["dense_blocks"] = _dense_pair_specs(
                 cfg, nd, attn_fn, {"mlp": T.mlp_specs(cfg, nd)})
         specs["moe_blocks"] = _dense_pair_specs(
-            cfg, nm, attn_fn, {"moe": _moe_specs(cfg, nm, ep)})
+            cfg, nm, attn_fn, {"moe": MOE.moe_specs(cfg, nm, ep)})
         if cfg.mtp_depth:
             specs["mtp"] = {
                 "proj": ParamSpec((2 * cfg.d_model, cfg.d_model), ("fsdp", None),
@@ -269,14 +232,70 @@ def positions_for(cfg, x, offset=0):
 # ---------------------------------------------------------------------------
 
 
+def _attn_fn(cfg: ModelConfig):
+    return MLA.apply_mla if cfg.use_mla else T.apply_attn
+
+
+def _dense_block(cfg, p, x, positions, *, kv_cache=None, cache_index=None):
+    """A leading dense block of the moe family: MLA or GQA, then SwiGLU."""
+    h, _ = _attn_fn(cfg)(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                         positions, kv_cache=kv_cache, cache_index=cache_index)
+    x = x + h
+    return x + L.swiglu_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                            p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                            p["mlp"]["w_down"])
+
+
+def _moe_block(cfg, p, x, positions, *, kv_cache=None, cache_index=None):
+    """MLA or GQA, then the routed experts and the shared expert on the
+    same normed input -> (x, aux)."""
+    h, _ = _attn_fn(cfg)(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                         positions, kv_cache=kv_cache, cache_index=cache_index)
+    x = x + h
+    xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, aux = MOE.apply_moe(cfg, p["moe"], xn)
+    if cfg.num_shared_experts:
+        sh = p["moe"]["shared"]
+        y = y + L.swiglu_mlp(xn, sh["wg"], sh["wu"], sh["wd"])
+    return x + y, aux
+
+
+def moe_layers(cfg: ModelConfig, params, x, positions, *, cache=None,
+               cache_index=None):
+    """The moe family's layers in order: ``num_dense_layers`` dense blocks,
+    then the MoE blocks (the MTP module does not run here, as in the
+    reference). ``cache`` holds the stacked ``d_*`` / ``m_*`` leaves,
+    written in place. Returns (x, aux summed over the MoE layers)."""
+    keys = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+
+    def layer_cache(pre, i):
+        return (None if cache is None else
+                {k: cache[f"{pre}_{k}"][i] for k in keys})
+
+    for i in range(cfg.num_dense_layers):
+        x = _dense_block(cfg, T.layer_params(params["dense_blocks"], i), x,
+                         positions, kv_cache=layer_cache("d", i),
+                         cache_index=cache_index)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers - cfg.num_dense_layers):
+        x, aux = _moe_block(cfg, T.layer_params(params["moe_blocks"], i), x,
+                            positions, kv_cache=layer_cache("m", i),
+                            cache_index=cache_index)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 def forward(cfg: ModelConfig, params, batch, return_hidden=False):
     """Full-sequence forward -> (logits, aux_loss)."""
     if cfg.family not in RUNS:
         raise not_ported(cfg, "forward")
     x = embed_inputs(cfg, params, batch)
     positions = positions_for(cfg, x)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    x, _ = T.scan_dense_blocks(cfg, params["blocks"], x, positions)
+    if cfg.family == "moe":
+        x, aux_total = moe_layers(cfg, params, x, positions)
+    else:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _ = T.scan_dense_blocks(cfg, params["blocks"], x, positions)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux_total
@@ -296,12 +315,29 @@ def unembed_logits(cfg: ModelConfig, params, x):
 def init_cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int):
     """The decode cache as "meta" tensors (shapes and dtypes, nothing
     allocated); ``index`` an int32 scalar, as in the reference."""
-    if cfg.family not in ("dense", "vlm"):
+    def meta(shape):
+        return torch.empty(shape, dtype=cfg.torch_dtype, device="meta")
+
+    cache: Dict[str, Any] = {
+        "index": torch.empty((), dtype=torch.int32, device="meta")}
+    if cfg.family in ("dense", "vlm"):
+        shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
+                 cfg.hd)
+        cache["k"], cache["v"] = meta(shape), meta(shape)
+    elif cfg.family == "moe":
+        nd = cfg.num_dense_layers
+        widths = ({"ckv": (cfg.kv_lora_rank,),
+                   "krope": (cfg.qk_rope_head_dim,)} if cfg.use_mla else
+                  {"k": (cfg.num_kv_heads, cfg.hd),
+                   "v": (cfg.num_kv_heads, cfg.hd)})
+        for pre, cnt in (("d", nd), ("m", cfg.num_layers - nd)):
+            if cnt:
+                for key, w in widths.items():
+                    cache[f"{pre}_{key}"] = meta(
+                        (cnt, batch_size, max_len) + w)
+    else:
         raise not_ported(cfg, "the decode cache")
-    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.hd)
-    return {"index": torch.empty((), dtype=torch.int32, device="meta"),
-            "k": torch.empty(shape, dtype=cfg.torch_dtype, device="meta"),
-            "v": torch.empty(shape, dtype=cfg.torch_dtype, device="meta")}
+    return cache
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -310,8 +346,6 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     asks for the CPU); ``index`` is the int 0."""
     shapes = init_cache_shapes(cfg, batch_size, max_len)
     device = resolve_device(device)
-    cache: Dict[str, Any] = {"index": 0}
-    for key in ("k", "v"):
-        cache[key] = torch.zeros(shapes[key].shape, dtype=shapes[key].dtype,
-                                 device=device)
-    return cache
+    return {key: 0 if key == "index" else
+            torch.zeros(m.shape, dtype=m.dtype, device=device)
+            for key, m in shapes.items()}

@@ -1,7 +1,7 @@
 """Serving: prefill + single-token decode. A port of
-``repro/serve/decode.py`` for the families ``dense`` and ``vlm``
-(decode.py:82-110 and 237-260); ``moe``, ``hybrid`` and ``ssm`` raise
-``NotImplementedError`` until their slice (ROADMAP §A.7).
+``repro/serve/decode.py`` for the families ``dense``, ``vlm`` and ``moe``
+(decode.py:82-163 and 237-306); ``hybrid`` and ``ssm`` raise
+``NotImplementedError`` until their slice (ROADMAP §A.7.2).
 
 The cache's tensors are written in place (the reference's engine donates
 its cache to the jitted step, so XLA writes it in place too); the returned
@@ -10,8 +10,6 @@ write lands on the last slot, as JAX's clamped ``dynamic_update_slice``
 puts it (``transformer._cache_start``).
 """
 from __future__ import annotations
-
-from typing import Any, Dict
 
 import torch
 
@@ -22,8 +20,20 @@ from repro_torch.models import transformer as T
 
 
 def _check_family(cfg: ModelConfig, what: str):
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise M.not_ported(cfg, what)
+
+
+def _layers(cfg: ModelConfig, params, x, positions, cache, index: int):
+    """Every layer against ``cache`` (written in place) from ``index``."""
+    if cfg.family == "moe":
+        x, _ = M.moe_layers(cfg, params, x, positions, cache=cache,
+                            cache_index=index)
+        return x
+    x, _ = T.scan_dense_blocks(cfg, params["blocks"], x, positions,
+                               kv_cache={"k": cache["k"], "v": cache["v"]},
+                               cache_index=index)
+    return x
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache):
@@ -32,11 +42,9 @@ def decode_step(cfg: ModelConfig, params, tokens, cache):
     idx = int(cache["index"])
     x = L.embed(tokens, params["embed"])
     pos = torch.full((x.shape[0], 1), idx, dtype=torch.int32, device=x.device)
-    x, kv = T.scan_dense_blocks(cfg, params["blocks"], x, pos,
-                                kv_cache={"k": cache["k"], "v": cache["v"]},
-                                cache_index=idx)
+    x = _layers(cfg, params, x, pos, cache, idx)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return M.unembed_logits(cfg, params, x), {"index": idx + 1, **kv}
+    return M.unembed_logits(cfg, params, x), dict(cache, index=idx + 1)
 
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int):
@@ -50,9 +58,6 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
     b, s = x.shape[:2]
     positions = M.positions_for(cfg, x)
     cache = M.init_cache(cfg, b, max_len, device=x.device)
-    x, kv = T.scan_dense_blocks(cfg, params["blocks"], x, positions,
-                                kv_cache={"k": cache["k"], "v": cache["v"]},
-                                cache_index=0)
-    new_cache: Dict[str, Any] = {"index": s, **kv}
+    x = _layers(cfg, params, x, positions, cache, 0)
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return M.unembed_logits(cfg, params, x), new_cache
+    return M.unembed_logits(cfg, params, x), dict(cache, index=s)

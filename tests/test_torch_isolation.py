@@ -2,8 +2,8 @@
 chip_smoke.py imports JAX or the JAX package, and the port serves on the
 CPU, through an engine, through the registry and the gateway, and through
 a gateway's worker process, builds a dataset, trains, runs a flywheel
-tick, and serves an LM through ``repro_torch.launch.serve``, in processes
-where importing either would fail."""
+tick, and serves a dense and a moe LM through ``repro_torch.launch.serve``,
+in processes where importing either would fail."""
 import ast
 import os
 import subprocess
@@ -126,6 +126,9 @@ finally:
 from repro_torch.launch import serve as lm_serve
 lm = lm_serve.main(["--arch", "granite-3-8b", "--smoke", "--device", "cpu",
                     "--requests", "2", "--max-new", "3"])
+assert [len(r.output) for r in lm] == [3, 3]
+lm = lm_serve.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--device",
+                    "cpu", "--requests", "2", "--max-new", "3"])
 assert [len(r.output) for r in lm] == [3, 3]
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)

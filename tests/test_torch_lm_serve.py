@@ -11,7 +11,11 @@ must be zero at these seeds.
 Reference behaviours reproduced, each with a test: the cache write past
 ``max_len`` lands on the last slot (JAX clamps ``dynamic_update_slice``'s
 start); a group's prompts are left-padded with token 0 and the padding is
-attended, so a request's tokens depend on its group's longest prompt.
+attended, so a request's tokens depend on its group's longest prompt. For
+the moe configurations decode against forward keeps the reference's own
+moe bar (2e-3, tests/test_decode.py), and at the published capacity
+factor (1.25) the engine's padding and pad slots count toward each
+expert's capacity, so assignments are dropped as in the reference.
 """
 import dataclasses
 
@@ -26,14 +30,17 @@ from repro.serve import server as JS
 from repro_torch.configs.base import get_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TMOE
 from repro_torch.serve import decode as TD
 from repro_torch.serve import server as TS
 
 from test_torch_lm_model import (as_jax, as_torch, batch_for, pair, to_np)
 
+MOES = ["granite-moe-3b-a800m", "deepseek-v3-671b"]
 DECODERS = ["qwen2.5-32b", "qwen2-72b", "granite-3-8b", "granite-8b",
-            "internvl2-1b"]
+            "internvl2-1b"] + MOES
 ATOL = 1e-4
+MOE_DECODE_ATOL = 2e-3          # tests/test_decode.py's bar for moe
 
 
 def close_logits(got, want):
@@ -43,7 +50,7 @@ def close_logits(got, want):
 def close_cache(got: dict, want: dict):
     assert sorted(got) == sorted(want)
     assert got["index"] == int(want["index"])
-    for key in ("k", "v"):
+    for key in (k for k in want if k != "index"):
         w = to_np(want[key])
         np.testing.assert_allclose(to_np(got[key]), w, rtol=0,
                                    atol=ATOL * np.abs(w).max())
@@ -85,7 +92,8 @@ def test_decode_matches_forward(name):
     s = prompt_len(tc, 8)
     _, cache = TD.prefill(tc, tp, pre, max_len=s + 4)
     lg, cache = TD.decode_step(tc, tp, batch["tokens"][:, -1:], cache)
-    assert float((full[:, -1] - lg[:, 0]).abs().max()) < ATOL
+    bar = MOE_DECODE_ATOL if tc.family == "moe" else ATOL
+    assert float((full[:, -1] - lg[:, 0]).abs().max()) < bar
     assert cache["index"] == s
 
 
@@ -150,8 +158,10 @@ def _requests(cls, prompts, max_new):
             for i, p in enumerate(prompts)]
 
 
-def _serve_both(name, prompts, max_new, slots=4, max_len=64):
+def _serve_both(name, prompts, max_new, slots=4, max_len=64, **overrides):
     jc, tc, jp, tp = pair(name)
+    jc = dataclasses.replace(jc, **overrides)
+    tc = dataclasses.replace(tc, **overrides)
     jreqs = JS.ServingEngine(jc, jp, slots=slots, max_len=max_len).run(
         _requests(JS.Request, prompts, max_new))
     eng = TS.ServingEngine(tc, tp, slots=slots, max_len=max_len,
@@ -160,7 +170,7 @@ def _serve_both(name, prompts, max_new, slots=4, max_len=64):
     return eng, jreqs, treqs
 
 
-@pytest.mark.parametrize("name", ["granite-3-8b", "qwen2.5-32b"])
+@pytest.mark.parametrize("name", ["granite-3-8b", "qwen2.5-32b"] + MOES)
 def test_serving_engine_tokens_equal_reference(name):
     """launch/serve.py's requests (seed-0 prompts of 4-31 tokens), two
     groups of four: every greedy token equal to the JAX engine's."""
@@ -176,6 +186,32 @@ def test_serving_engine_tokens_equal_reference(name):
     assert stats["total_new_tokens"] == 64
     assert sorted(stats) == sorted(JS.ServingEngine(
         *pair(name)[0::2]).throughput_stats(jreqs))
+
+
+@pytest.mark.parametrize("name", MOES)
+def test_moe_engine_tokens_equal_reference_at_published_capacity(
+        name, monkeypatch):
+    """launch/serve.py's requests at moe_capacity_factor 1.25: the
+    prefill of each group (its left padding included) overflows some
+    experts' buffers, in both packages alike, and every greedy token
+    equals the JAX engine's."""
+    calls = []
+    dispatch = TMOE._dispatch_indices
+
+    def counting(ids, e, cap):
+        order, buf_idx = dispatch(ids, e, cap)
+        calls.append(int((buf_idx == e * cap).sum()))
+        return order, buf_idx
+
+    monkeypatch.setattr(TMOE, "_dispatch_indices", counting)
+    cfg = get_config(name).reduce()
+    prompts = [r.prompt for r in launch_serve.make_requests(cfg, 8, 6)]
+    _, jreqs, treqs = _serve_both(name, prompts, max_new=6,
+                                  moe_capacity_factor=1.25)
+    flips = sum(int(np.sum(t.output != j.output))
+                for t, j in zip(treqs, jreqs))
+    assert flips == 0
+    assert sum(calls) > 0, calls
 
 
 def test_left_padding_is_attended_as_in_reference():
@@ -206,8 +242,16 @@ def test_launch_serve_smoke_on_cpu(capsys):
     assert "req 0:" in out and "tokens_per_s" in out
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "granite-moe-3b-a800m",
-                                  "recurrentgemma-2b", "xlstm-1.3b"])
+def test_launch_serve_moe_smoke_on_cpu(capsys):
+    done = launch_serve.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                              "--device", "cpu", "--requests", "3",
+                              "--max-new", "4"])
+    assert [len(r.output) for r in done] == [4, 4, 4]
+    out = capsys.readouterr().out
+    assert "req 0:" in out and "tokens_per_s" in out
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-1.3b"])
 def test_decode_of_families_not_ported_raises(name):
     cfg = get_config(name).reduce()
     tok = torch.zeros((1, 2), dtype=torch.long)
