@@ -179,7 +179,39 @@ Phases, one JSON line each on stdout:
      decode step against the materialized form and card against CPU.
      memory_allocated before and after (all freed). No kernel: the JAX
      MoE and MLA call none.
- 12. contracts — one tick at width 4 equals the same slots' tick at width 2
+ 12. lm_recurrent — the recurrent families: recurrentgemma-2b whole
+     (hybrid: RG-LRU blocks and local attention; bf16, 26 layers, d 2560,
+     10 q heads on 1 kv head of 256, window 2048: 3.55B weights, 7.10 GB)
+     and xlstm-1.3b whole (ssm: 6 sLSTM and 42 mLSTM blocks; bf16, d
+     2048, 4 heads: 2.01B weights, 4.02 GB), each serving launch/serve.py's
+     8 requests through ServingEngine(slots 4, max_len 128) twice (the
+     same tokens, all in range), with throughput_stats, decode ms a step
+     beside its bound (every weight and the cache read, the recurrent
+     states written, over 3.35 TB/s) and a profile of decode steps; then
+     4 prompts of 2,048 tokens prefilled at max_len 4096 (seconds; the
+     mLSTM's chunkwise form, a 2,048-step sLSTM scan) and 16 decode steps,
+     every logit finite, the hybrid's 2,048-slot window wrapped: slot_pos
+     holds exactly the last 2,048 positions, p in slot p % 2048. Then fp32,
+     TF32 off, at full width, one superblock deep (recurrentgemma 3 layers,
+     xlstm 8), drawn at the full model's layer scale (gated at 1e-4 of max
+     |out| or |logit|; materialize's scale for the cut reported): each
+     block on the card from the host CPU's input against the CPU's output
+     and each recurrent block's prefill(S-1) + one decode step against
+     its forward (teacher-forced), the unembedding, prefill(S-1) +
+     decode_step against forward end to end where the host CPU's own
+     1-thread-vs-all spread is under the bar (recurrentgemma; xlstm's
+     chained sLSTM and mLSTM part by O(1) under a mere change of
+     summation order, so there it is reported), the RG-LRU doubling
+     scan against fp32 and float64 sequential loops at B 4, S 2048, W
+     2560, the mLSTM's chunkwise form against its
+     sequential scan at dh 1024, S 128, the sLSTM card against CPU over
+     its first 16 steps (64 and 256 reported beside float64: at this scale
+     its recurrence parts from float64 within 64 steps); reported, the
+     forward card against CPU beside the host CPU's 1-thread-vs-all
+     spread, and the greedy tokens of 4 steps on both. memory_allocated
+     before and after (all freed), peak. No kernel: the reference's
+     recurrent blocks call none (its sLSTM is a scan, not slstm_fused).
+ 13. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
@@ -2870,6 +2902,414 @@ def phase_lm_moe(ctx):
         raise AssertionError("; ".join(failures))
 
 
+LM_REC_ARCHS = ("recurrentgemma-2b", "xlstm-1.3b")    # each whole on one H100
+LM_REC_WRAP_STEPS = 16          # decode steps after the long prefill: the
+                                # hybrid's 2,048-slot window wraps
+LM_REC_CHECK = {"recurrentgemma-2b": (3, {"superblocks": 8}),
+                "xlstm-1.3b": (8, {"superblocks/slstm": 6,
+                                   "superblocks/mlstm": 42})}
+                                # one superblock each; each stack drawn at
+                                # the full model's layers of its kind
+LM_REC_SCAN = (4, 2048)         # the RG-LRU scan check: batch, steps
+LM_REC_FORMS = (2, 128)         # the mLSTM forms check: batch, steps (dh 1024)
+LM_SLSTM_WINDOWS = (16, 64, 256)  # the sLSTM run card vs CPU: the first
+                                  # window gated, the longer ones reported
+
+
+def at_scales(specs, scales: dict):
+    """``specs`` with every "normal" leaf under each path of ``scales``
+    ("a" or "a/b") drawn at std 1/sqrt(n): ``at_layer_scale`` one level
+    down where the path has two parts."""
+    out = dict(specs)
+    for path, n in scales.items():
+        head, _, sub = path.partition("/")
+        if sub:
+            out[head] = at_layer_scale(out[head], (sub,), n)
+        else:
+            out = at_layer_scale(out, (head,), n)
+    return out
+
+
+@contextlib.contextmanager
+def rec_blocks_recorded():
+    """Record each call of the recurrent families' blocks
+    (``recurrent.apply_{rglru,mlstm,slstm}_block``,
+    ``transformer.apply_block``) while the block runs: its name, the
+    function, its arguments and its output (wrapped here, put back
+    after)."""
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+    targets = [(R, "apply_rglru_block"), (R, "apply_mlstm_block"),
+               (R, "apply_slstm_block"), (T, "apply_block")]
+    saved = {(mod, name): getattr(mod, name) for mod, name in targets}
+    calls = []
+
+    def recording(mod, name):
+        fn = saved[(mod, name)]
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, fn, args, kw, out))
+            return out
+        return call
+
+    for mod, name in targets:
+        setattr(mod, name, recording(mod, name))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (at least 1), on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
+
+
+def rec_fp32_check(cfg, specs, toks, dev) -> dict:
+    """The recurrent families' fp32 checks on weights drawn from ``specs``
+    (seed 0) on the card and copied to the host, gated by the caller:
+    each block on the card from the host CPU's input to it against the
+    CPU's output (teacher-forced), each recurrent block's prefill of
+    that input's first S-1 positions from a zero state plus one decode
+    step against its forward at the last position (teacher-forced, on the
+    card), the unembedding of the CPU's last hidden state, and
+    prefill(S-1) + decode_step against forward at the last position on
+    the card end to end (gated where the CPU's own spread, one thread
+    against all, is under the bar). Reported: the card's forward against
+    the CPU's beside that spread, and the greedy tokens of
+    LM_GREEDY_STEPS steps on both."""
+    import torch
+    from repro_torch.common import map_params, materialize
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode as D
+    v, ss = cfg.vocab_size, toks.shape[1]
+    p_card = materialize(specs, seed=0, device=dev)
+    p_cpu = map_params(lambda t: t.cpu(), p_card)
+    full, _ = M.forward(cfg, p_card, {"tokens": toks.to(dev)})
+    _, cache = D.prefill(cfg, p_card, {"tokens": toks[:, :-1].to(dev)},
+                         max_len=ss + 4)
+    lg, _ = D.decode_step(cfg, p_card, toks[:, -1:].to(dev), cache)
+    with rec_blocks_recorded() as blocks:
+        hidden_cpu, _ = M.forward(cfg, p_cpu, {"tokens": toks},
+                                  return_hidden=True)
+    full_cpu = M.unembed_logits(cfg, p_cpu, hidden_cpu)
+
+    def card(a):
+        if isinstance(a, dict):
+            return {k: card(t) for k, t in a.items()}
+        return a.to(dev) if isinstance(a, torch.Tensor) else a
+
+    zero = M.init_cache(cfg, toks.shape[0], 8, device=dev)
+    block_errs, decode_errs = [], []
+    for name, fn, args, kw, out in blocks:
+        bcfg, p, x = args[0], card(args[1]), card(args[2])
+        full_card = fn(bcfg, p, x, *[card(a) for a in args[3:]],
+                       **card(kw))[0]
+        block_errs.append((name, rel_err(full_card, out[0])))
+        kind = name[len("apply_"):-len("_block")]
+        if kind in M.STATE_KEYS:
+            st = {k: t.clone()
+                  for k, t in M.layer_state(zero, kind, 0).items()}
+            _, st = fn(bcfg, p, x[:, :-1], state=st)
+            step, _ = fn(bcfg, p, x[:, -1:], state=st)
+            decode_errs.append((name, rel_err(step[:, 0], full_card[:, -1])))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one_thread, _ = M.forward(cfg, p_cpu, {"tokens": toks})
+    finally:
+        torch.set_num_threads(threads)
+    greedy_card = lm_greedy(D, cfg, p_card, toks.to(dev), LM_GREEDY_STEPS,
+                            ss + LM_GREEDY_STEPS)
+    greedy_cpu = lm_greedy(D, cfg, p_cpu, toks, LM_GREEDY_STEPS,
+                           ss + LM_GREEDY_STEPS)
+    return {
+        "max_abs_logit": float(full[..., :v].abs().max()),
+        "blocks_card_vs_cpu_teacher_forced": block_errs,
+        "blocks_decode_vs_forward_teacher_forced": decode_errs,
+        "unembed_card_vs_cpu": lm_max_err(
+            M.unembed_logits(cfg, p_card, hidden_cpu.to(dev)), full_cpu, v),
+        "decode_vs_forward": lm_max_err(lg[:, 0], full[:, -1], v),
+        "card_vs_cpu_forward": lm_max_err(full, full_cpu, v),
+        "cpu_one_thread_vs_all": lm_max_err(one_thread, full_cpu, v),
+        "cpu_threads": threads,
+        "greedy_tokens_differing": int((greedy_card != greedy_cpu).sum()),
+        "greedy_tokens": greedy_card.tolist()}
+
+
+def rglru_scan_check(cfg, dev) -> dict:
+    """``recurrent._rglru_core`` (the doubling scan) on the card against
+    an fp32 and a float64 sequential loop on the card, at LM_REC_SCAN's
+    batch and steps and the LRU's width, from a carried h0."""
+    import torch
+    from repro_torch.models import recurrent as R
+    b, s = LM_REC_SCAN
+    w = cfg.lru_width
+    gen = torch.Generator().manual_seed(2)
+    x, r, i = (torch.randn((b, s, w), generator=gen) for _ in range(3))
+    r, i = torch.sigmoid(r), torch.sigmoid(i)
+    lam = torch.rand(w, generator=gen) * 2 - 1
+    h0 = torch.randn((b, w), generator=gen)
+    x, r, i, lam, h0 = (t.to(dev) for t in (x, r, i, lam, h0))
+    y, _ = R._rglru_core(x, r, i, lam, h0)
+    loops = {}
+    for dt in (torch.float32, torch.float64):
+        sp = torch.nn.functional.softplus(lam.to(dt))
+        log_a = -R._LRU_C * sp * r.to(dt)
+        a = torch.exp(log_a)
+        g = torch.sqrt(torch.clamp(1 - torch.exp(2 * log_a), min=1e-12)) \
+            * (i.to(dt) * x.to(dt))
+        h, ys = h0.to(dt), []
+        for t in range(s):
+            h = a[:, t] * h + g[:, t]
+            ys.append(h)
+        loops[str(dt)] = torch.stack(ys, 1)
+    return {"batch": b, "steps": s, "width": w,
+            "max_abs_h": float(y.abs().max()),
+            "scan_vs_fp32_loop": rel_err(y, loops["torch.float32"]),
+            "scan_vs_float64_loop": rel_err(y, loops["torch.float64"]),
+            "fp32_loop_vs_float64_loop": rel_err(loops["torch.float32"],
+                                                 loops["torch.float64"])}
+
+
+def mlstm_forms_check(cfg, dev) -> dict:
+    """The mLSTM's chunkwise form against its sequential scan on the card
+    on the same q, k, v and gates at the configuration's heads (dh 1024
+    at xlstm-1.3b) over LM_REC_FORMS' steps, from a carried state:
+    h, C, n and m over their max |value|."""
+    import torch
+    from repro_torch.models import recurrent as R
+    b, s = LM_REC_FORMS
+    h, dh = cfg.num_heads, 2 * cfg.d_model // cfg.num_heads
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen).to(dev)
+               for _ in range(3))
+    k = k * dh ** -0.5
+    i_pre, f_pre = (2 * torch.randn((b, s, h), generator=gen).to(dev)
+                    for _ in range(2))
+    C0 = 0.1 * torch.randn((b, h, dh, dh), generator=gen).to(dev)
+    n0 = torch.randn((b, h, dh), generator=gen).to(dev)
+    m0 = torch.zeros((b, h), device=dev)
+    hc, st_c = R._mlstm_chunkwise(q, k, v, i_pre, f_pre, C0.clone(), n0, m0,
+                                  R.MLSTM_CHUNK)
+    hs, st_s = R._mlstm_sequential(q, k, v, i_pre, f_pre, C0.clone(), n0, m0)
+    errs = {"h": rel_err(hc, hs)}
+    errs.update({key: rel_err(a, c)
+                 for key, a, c in zip(("C", "n", "m"), st_c, st_s)})
+    return {"batch": b, "steps": s, "heads": h, "dh": dh,
+            "chunkwise_vs_sequential": errs}
+
+
+def slstm_window_check(cfg, n_scale: int, dev) -> dict:
+    """One sLSTM block at full width drawn at std 1/sqrt(n_scale) (seed 0)
+    over the longest of LM_SLSTM_WINDOWS steps: the card against the
+    host CPU and the CPU against its run on float64 weights and input
+    (the block's own fp32 casts kept), each over the first w steps of
+    every window w (errors over max |out| there)."""
+    import torch
+    from repro_torch.common import map_params, materialize
+    from repro_torch.models import recurrent as R
+    from repro_torch.models.transformer import layer_params
+    specs = at_scales({"s": R.slstm_specs(cfg, 1)}, {"s": n_scale})
+    p = layer_params(materialize(specs, seed=0, device=dev)["s"], 0)
+    p_cpu = map_params(lambda t: t.cpu(), p)
+    x = torch.randn((2, max(LM_SLSTM_WINDOWS), cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    y, _ = R.apply_slstm_block(cfg, p, x.to(dev))
+    y_cpu, _ = R.apply_slstm_block(cfg, p_cpu, x)
+    y64, _ = R.apply_slstm_block(cfg, map_params(lambda t: t.double(), p_cpu),
+                                 x.double())
+    return {"scale_layers": n_scale, "windows": {
+        w: {"card_vs_cpu": rel_err(y[:, :w], y_cpu[:, :w]),
+            "cpu_vs_float64": rel_err(y_cpu[:, :w], y64[:, :w])}
+        for w in LM_SLSTM_WINDOWS}}
+
+
+def rec_long(cfg, params, dev, failures) -> dict:
+    """LM_LONG's prompts prefilled at its max_len (twice: the first call
+    warms up), then LM_REC_WRAP_STEPS decode steps, event-timed. Every
+    logit finite; for the hybrid the rolling window (min(max_len,
+    attn_window) slots) must hold exactly the last positions, position p
+    in slot p % w: past 2,048 tokens the first steps overwrite the
+    oldest slots."""
+    import torch
+    from repro_torch.serve import decode as D
+    from repro_torch.timing import cuda_ms
+    b, s, max_len = LM_LONG
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    prefill_s = []
+    for _ in range(2):
+        cache = None
+        sync()
+        t0 = time.perf_counter()
+        lg, cache = D.prefill(cfg, params, {"tokens": toks}, max_len=max_len)
+        sync()
+        prefill_s.append(time.perf_counter() - t0)
+    state = {"cache": cache, "finite": torch.isfinite(
+        lg[..., :cfg.vocab_size]).all()}
+    tok = torch.argmax(lg[:, -1:, :cfg.vocab_size], dim=-1)
+
+    def step():
+        lg, state["cache"] = D.decode_step(cfg, params, tok, state["cache"])
+        state["finite"] &= torch.isfinite(lg[..., :cfg.vocab_size]).all()
+
+    ms = cuda_ms(step, reps=LM_REC_WRAP_STEPS - 1)      # + one warm-up step
+    cache = state["cache"]
+    out = {"batch": b, "prompt_tokens": s, "max_len": max_len,
+           "prefill_s": prefill_s, "decode_steps": LM_REC_WRAP_STEPS,
+           "decode_ms_a_step": ms, "index": cache["index"]}
+    if not bool(state["finite"]):
+        failures.append(f"{cfg.name}: non-finite logits after the long "
+                        f"prefill")
+    if cache["index"] != s + LM_REC_WRAP_STEPS:
+        failures.append(f"{cfg.name}: index {cache['index']}")
+    if "slot_pos" in cache:
+        sp = cache["slot_pos"].cpu()
+        w, idx = sp.shape[0], cache["index"]
+        held = list(range(idx - w, idx))
+        rolled = (sorted(sp.tolist()) == held
+                  and all(int(sp[p % w]) == p for p in held))
+        out.update(window_slots=w, slot_pos_rolled=rolled,
+                   slots_overwritten=idx - w)
+        if not rolled:
+            failures.append(f"{cfg.name}: slot_pos does not hold the last "
+                            f"{w} positions")
+    return out
+
+
+def phase_lm_recurrent(ctx):
+    """The recurrent families served on the card: recurrentgemma-2b
+    (hybrid: RG-LRU blocks and local attention; bf16, 26 layers, every
+    width as published) and xlstm-1.3b (ssm: sLSTM and mLSTM; bf16, 48
+    layers, every width as published) whole, weights from
+    materialize(seed 0). Each serves launch/serve.py's requests through
+    ServingEngine twice (the same tokens in both runs, all in range), with
+    decode ms a step beside its bound (every weight and the cache read,
+    the recurrent states written, over 3.35 TB/s) and a profile; then 4
+    prompts of 2,048 tokens prefilled at max_len 4096 (the mLSTM's
+    chunkwise form, a 2,048-step sLSTM scan) and 16 decode steps, where
+    the hybrid's 2,048-slot window wraps. Then fp32, TF32 off, at full
+    width, one superblock deep (recurrentgemma 3 layers, xlstm 8), drawn
+    at the full model's layer scale (gated at LM_REL_TOL of max |out| or
+    |logit|; materialize's scale for the cut depth reported): each block
+    on the card from the CPU's input to it against the CPU's output and
+    each recurrent block's prefill + decode step against its forward
+    (teacher-forced), decode against forward end to end where the CPU's
+    own spread says the model is conditioned, the RG-LRU scan against
+    fp32 and float64 sequential loops at S 2048, the mLSTM's chunkwise
+    form against its sequential scan at dh 1024, S 128; the sLSTM card
+    against CPU over
+    its first 16 steps (gated; 64 and 256 reported beside float64: its
+    recurrence parts from float64 at this scale within 64 steps).
+    Reported: the forward card against CPU beside the CPU's own spread,
+    and greedy tokens. Frees what it allocates. No kernel: the reference's
+    recurrent blocks call none (its sLSTM is a scan, not slstm_fused)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.common import materialize, param_bytes, param_count
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    dev = ctx["device"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    failures = []
+    out = {"phase": "lm_recurrent", "nvidia_smi": ctx["smi"],
+           "memory_allocated_before": before}
+    t_phase = time.perf_counter()
+
+    with torch.inference_mode():
+        for name in LM_REC_ARCHS:
+            cfg = get_config(name)
+            specs = M.param_specs(cfg)
+            t0 = time.perf_counter()
+            params = materialize(specs, seed=0, device=dev)
+            sync()
+            res = {"arch": cfg.name, "family": cfg.family,
+                   "dtype": cfg.dtype, "layers": cfg.num_layers,
+                   "weights": param_count(specs),
+                   "weight_bytes": param_bytes(specs),
+                   "materialize_s": time.perf_counter() - t0,
+                   "memory_allocated_weights":
+                       torch.cuda.memory_allocated(dev)}
+            res.update(lm_serve_twice(cfg, params, dev, failures))
+            shapes = M.init_cache_shapes(cfg, LM_SLOTS, LM_MAX_LEN)
+            state_bytes = sum(m.numel() * m.element_size()
+                              for k, m in shapes.items()
+                              if k not in ("index", "k", "v", "slot_pos"))
+            cache_bytes = res.pop("cache_bytes")
+            res["decode_128"].update(
+                cache_bytes=cache_bytes, state_bytes_written=state_bytes,
+                bound_ms=(res["weight_bytes"] + cache_bytes + state_bytes)
+                / H100_BYTES_PER_S * 1e3)
+            t0 = time.perf_counter()
+            res["long"] = rec_long(cfg, params, dev, failures)
+            res["long"]["wall_s"] = time.perf_counter() - t0
+            res["peak_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+            out[name] = res
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # -- fp32 at full width, one superblock deep
+        gen = torch.Generator().manual_seed(0)
+        checks = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        errs = []
+        for name in LM_REC_ARCHS:
+            full = get_config(name)
+            layers, scales = LM_REC_CHECK[name]
+            cfg = dataclasses.replace(full, num_layers=layers,
+                                      dtype="float32")
+            specs = M.param_specs(cfg)
+            toks = torch.randint(0, cfg.vocab_size, LM_CHECK_SHAPE,
+                                 generator=gen)
+            chk = rec_fp32_check(cfg, at_scales(specs, scales), toks, dev)
+            checks[name] = {
+                "layers": layers, "weights": param_count(specs),
+                "batch": LM_CHECK_SHAPE[0], "tokens": LM_CHECK_SHAPE[1],
+                "scale_layers": scales, "full_model_scale": chk,
+                f"materialize_depth{layers}_scale": rec_fp32_check(
+                    cfg, specs, toks, dev)}
+            errs += [e for _, e in chk["blocks_card_vs_cpu_teacher_forced"]]
+            errs += [e for _, e in
+                     chk["blocks_decode_vs_forward_teacher_forced"]]
+            errs.append(chk["unembed_card_vs_cpu"])
+            if chk["cpu_one_thread_vs_all"] <= LM_REL_TOL:   # conditioned
+                errs.append(chk["decode_vs_forward"])
+        rg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                                 dtype="float32")
+        xl = dataclasses.replace(get_config("xlstm-1.3b"), dtype="float32")
+        checks["rglru_scan"] = rglru_scan_check(rg, dev)
+        checks["mlstm_forms"] = mlstm_forms_check(xl, dev)
+        checks["slstm_windows"] = slstm_window_check(
+            xl, LM_REC_CHECK["xlstm-1.3b"][1]["superblocks/slstm"], dev)
+        errs.append(checks["rglru_scan"]["scan_vs_fp32_loop"])
+        errs += list(checks["mlstm_forms"]["chunkwise_vs_sequential"].values())
+        errs.append(checks["slstm_windows"]["windows"][LM_SLSTM_WINDOWS[0]]
+                    ["card_vs_cpu"])
+        out["fp32_check"] = checks
+        if max(errs) > LM_REL_TOL:
+            failures.append(f"fp32 checks over {LM_REL_TOL}: {errs}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev)
+    out["memory_allocated_after"] = after
+    out["peak_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    if after > before + LM_FREE_SLACK:
+        failures.append(f"memory_allocated {before} before, {after} after")
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def phase_contracts(ctx):
     import torch
     from repro_torch.common import init_params
@@ -2927,7 +3367,7 @@ def main() -> int:
     for phase in (phase_build, phase_kernels, phase_fusion, phase_breakdown,
                   phase_lm_kernels, phase_serving, phase_gateway,
                   phase_workers, phase_flywheel, phase_lm_serving,
-                  phase_lm_moe, phase_contracts):
+                  phase_lm_moe, phase_lm_recurrent, phase_contracts):
         try:
             phase(ctx)
         except Exception:

@@ -6,11 +6,10 @@ API (pure functions of (cfg, params, ...)):
   init_cache_shapes(cfg, batch, maxlen)  -> tree of "meta" tensors
   init_cache(cfg, batch, maxlen, device) -> zeroed cache, index 0
 
-``forward`` and the caches run the families ``dense``, ``vlm``,
-``audio`` and ``moe`` (MoE and MLA: ``moe_layers``). ``hybrid`` and
-``ssm`` declare their parameters here (so every configuration's
-``param_specs`` ports) and raise ``NotImplementedError`` elsewhere until
-their slice (ROADMAP §A.7.2).
+Every family runs: ``dense``, ``vlm`` and ``audio`` (the stacked
+transformer blocks), ``moe`` (MoE and MLA: ``moe_layers``), ``hybrid``
+(RG-LRU blocks and local attention: ``hybrid_layers``) and ``ssm`` (sLSTM
+and mLSTM blocks: ``xlstm_layers``).
 
 The cache's ``index`` is a Python int, not a device scalar: slicing the
 cache needs it on the host, and a device scalar would cost a sync a step.
@@ -27,83 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import recurrent as REC
 from repro_torch.models import transformer as T
-
-RUNS = ("dense", "vlm", "audio", "moe")
-
-
-def not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} for the {cfg.family!r} family ({cfg.name}) is not ported "
-        f"yet: see ROADMAP §A.7; the port runs {', '.join(RUNS)}")
-
-
-# ---------------------------------------------------------------------------
-# Param specs of the families not ported yet: copies of the reference's
-# rglru_specs (recurrent.py:29), mlstm_specs (:113) and slstm_specs
-# (:268). Their apply functions come with their slice (ROADMAP §A.7.2).
-# ---------------------------------------------------------------------------
-
-
-def _rglru_specs(cfg: ModelConfig, n: int) -> dict:
-    d, w = cfg.d_model, cfg.lru_width
-    dt = cfg.torch_dtype
-    return {
-        "ln": ParamSpec((n, d), ("layers", None), "ones", dt),
-        "w_gate_in": ParamSpec((n, d, w), ("layers", "fsdp", "tp"), "normal", dt),
-        "w_rec_in": ParamSpec((n, d, w), ("layers", "fsdp", "tp"), "normal", dt),
-        "conv_w": ParamSpec((n, cfg.conv1d_width, w), ("layers", None, "tp"), "normal", dt),
-        "conv_b": ParamSpec((n, w), ("layers", "tp"), "zeros", dt),
-        "w_a": ParamSpec((n, w, w), ("layers", "fsdp", "tp"), "normal", dt),
-        "w_i": ParamSpec((n, w, w), ("layers", "fsdp", "tp"), "normal", dt),
-        "lam": ParamSpec((n, w), ("layers", "tp"), ("uniform", 1.0), torch.float32),
-        "w_out": ParamSpec((n, w, d), ("layers", "tp_in", "fsdp"), "normal", dt),
-        "mlp": {
-            "w_gate": ParamSpec((n, d, cfg.d_ff), ("layers", "fsdp", "tp"), "normal", dt),
-            "w_up": ParamSpec((n, d, cfg.d_ff), ("layers", "fsdp", "tp"), "normal", dt),
-            "w_down": ParamSpec((n, cfg.d_ff, d), ("layers", "tp_in", "fsdp"), "normal", dt),
-        },
-        "ln2": ParamSpec((n, d), ("layers", None), "ones", dt),
-    }
-
-
-def _mlstm_specs(cfg: ModelConfig, n: int) -> dict:
-    d = cfg.d_model
-    inner = 2 * d
-    dh = inner // cfg.num_heads
-    dt = cfg.torch_dtype
-    heads = ParamSpec((n, cfg.num_heads, dh, dh), ("layers", "tp", None, None),
-                      "normal", dt)
-    return {
-        "ln": ParamSpec((n, d), ("layers", None), "ones", dt),
-        "w_up": ParamSpec((n, d, inner), ("layers", "fsdp", "tp"), "normal", dt),
-        "w_gate": ParamSpec((n, d, inner), ("layers", "fsdp", "tp"), "normal", dt),
-        "conv_w": ParamSpec((n, cfg.conv1d_width, inner), ("layers", None, "tp"), "normal", dt),
-        "conv_b": ParamSpec((n, inner), ("layers", "tp"), "zeros", dt),
-        "wq": heads,
-        "wk": heads,
-        "wv": heads,
-        "w_if": ParamSpec((n, inner, 2 * cfg.num_heads), ("layers", "fsdp", None), "normal", dt),
-        "w_down": ParamSpec((n, inner, d), ("layers", "tp_in", "fsdp"), "normal", dt),
-    }
-
-
-def _slstm_specs(cfg: ModelConfig, n: int) -> dict:
-    d = cfg.d_model
-    dt = cfg.torch_dtype
-    h = cfg.num_heads
-    dh = d // h
-    f = max(128, round(d * 4 / 3 / 128) * 128)
-    return {
-        "ln": ParamSpec((n, d), ("layers", None), "ones", dt),
-        "w_zifo": ParamSpec((n, d, 4 * d), ("layers", "fsdp", "tp"), "normal", dt),
-        "r_zifo": ParamSpec((n, h, dh, 4 * dh), ("layers", None, None, None), "normal", dt),
-        "w_out": ParamSpec((n, d, d), ("layers", "fsdp", "tp"), "normal", dt),
-        "ln2": ParamSpec((n, d), ("layers", None), "ones", dt),
-        "mlp_up": ParamSpec((n, d, f), ("layers", "fsdp", "tp"), "normal", dt),
-        "mlp_down": ParamSpec((n, f, d), ("layers", "tp_in", "fsdp"), "normal", dt),
-    }
-
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -184,18 +108,18 @@ def param_specs(cfg: ModelConfig) -> dict:
         super_specs = {}
         for j, kind in enumerate(cfg.block_pattern):
             if kind == "rec":
-                super_specs[f"l{j}_rec"] = _rglru_specs(cfg, n_super)
+                super_specs[f"l{j}_rec"] = REC.rglru_specs(cfg, n_super)
             else:
                 super_specs[f"l{j}_attn"] = T.block_specs(cfg, n_super)
         specs["superblocks"] = super_specs
         for j, kind in enumerate(rem):
-            specs[f"rem{j}"] = (_rglru_specs(cfg, 1) if kind == "rec"
+            specs[f"rem{j}"] = (REC.rglru_specs(cfg, 1) if kind == "rec"
                                 else T.block_specs(cfg, 1))
     elif cfg.family == "ssm":
         n_super, n_m = _xlstm_layout(cfg)
         specs["superblocks"] = {
-            "slstm": _slstm_specs(cfg, n_super),
-            "mlstm": _mlstm_specs(cfg, n_super * n_m),  # (n_super*n_m) flat
+            "slstm": REC.slstm_specs(cfg, n_super),
+            "mlstm": REC.mlstm_specs(cfg, n_super * n_m),  # (n_super*n_m) flat
         }
     else:
         raise ValueError(cfg.family)
@@ -285,17 +209,87 @@ def moe_layers(cfg: ModelConfig, params, x, positions, *, cache=None,
     return x, aux_total
 
 
+def hybrid_layers(cfg: ModelConfig, params) -> list:
+    """The hybrid family's layers in order as (kind, per-layer params):
+    the superblocks' pattern ``n_super`` times, then the remainder layers
+    ``rem{j}`` (the reference's ``_hybrid_pattern_list`` and
+    ``_hybrid_layer_params``, serve/decode.py:371-387)."""
+    n_super, rem = _hybrid_layout(cfg)
+    sb = params["superblocks"]
+    out = []
+    for s in range(n_super):
+        for j, kind in enumerate(cfg.block_pattern):
+            key = f"l{j}_rec" if kind == "rec" else f"l{j}_attn"
+            out.append((kind, T.layer_params(sb[key], s)))
+    for j, kind in enumerate(rem):
+        out.append((kind, T.layer_params(params[f"rem{j}"], 0)))
+    return out
+
+
+# each recurrent block's state keys -> the stacked cache's keys
+STATE_KEYS = {"rglru": {"h": "lru_h", "conv": "conv"},
+              "mlstm": {"C": "m_C", "n": "m_n", "m": "m_m", "conv": "m_conv"},
+              "slstm": {"h": "s_h", "c": "s_c", "n": "s_n", "m": "s_m"}}
+
+
+def layer_state(cache, kind: str, i: int):
+    """Views of recurrent layer ``i``'s state of ``kind`` in the stacked
+    ``cache``, under the block's keys (None without a cache)."""
+    if cache is None:
+        return None
+    return {k: cache[v][i] for k, v in STATE_KEYS[kind].items()}
+
+
+def store_state(views, new):
+    """Write a block's new state into the cache's views of it (a leaf the
+    block updated in place is already there)."""
+    if views is None:
+        return
+    for key, t in new.items():
+        if t is not views[key]:
+            views[key].copy_(t)
+
+
+def xlstm_layers(cfg: ModelConfig, params, x, *, cache=None):
+    """The ssm family's layers in order: each superblock is one sLSTM, then
+    ``slstm_every - 1`` mLSTM from the flat ``mlstm`` stack. ``cache``
+    holds the stacked ``s_*`` and ``m_*`` states, read and written in
+    place."""
+    n_super, n_m = _xlstm_layout(cfg)
+    sb = params["superblocks"]
+    for si in range(n_super):
+        st = layer_state(cache, "slstm", si)
+        x, nst = REC.apply_slstm_block(
+            cfg, T.layer_params(sb["slstm"], si), x, state=st)
+        store_state(st, nst)
+        for mi in range(si * n_m, (si + 1) * n_m):
+            st = layer_state(cache, "mlstm", mi)
+            x, nst = REC.apply_mlstm_block(
+                cfg, T.layer_params(sb["mlstm"], mi), x, state=st)
+            store_state(st, nst)
+    return x
+
+
 def forward(cfg: ModelConfig, params, batch, return_hidden=False):
     """Full-sequence forward -> (logits, aux_loss)."""
-    if cfg.family not in RUNS:
-        raise not_ported(cfg, "forward")
     x = embed_inputs(cfg, params, batch)
     positions = positions_for(cfg, x)
-    if cfg.family == "moe":
-        x, aux_total = moe_layers(cfg, params, x, positions)
-    else:
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("dense", "vlm", "audio"):
         x, _ = T.scan_dense_blocks(cfg, params["blocks"], x, positions)
+    elif cfg.family == "moe":
+        x, aux_total = moe_layers(cfg, params, x, positions)
+    elif cfg.family == "hybrid":
+        for kind, p in hybrid_layers(cfg, params):
+            if kind == "rec":
+                x, _ = REC.apply_rglru_block(cfg, p, x)
+            else:
+                x, _ = T.apply_block(cfg, p, x, positions,
+                                     window=cfg.attn_window)
+    elif cfg.family == "ssm":
+        x = xlstm_layers(cfg, params, x)
+    else:
+        raise ValueError(cfg.family)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux_total
@@ -308,18 +302,21 @@ def unembed_logits(cfg: ModelConfig, params, x):
 
 
 # ---------------------------------------------------------------------------
-# KV caches
+# KV / state caches
 # ---------------------------------------------------------------------------
 
 
 def init_cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int):
     """The decode cache as "meta" tensors (shapes and dtypes, nothing
-    allocated); ``index`` an int32 scalar, as in the reference."""
-    def meta(shape):
-        return torch.empty(shape, dtype=cfg.torch_dtype, device="meta")
+    allocated), with the reference's dtypes: K/V, latents and conv states
+    in the configuration's dtype, recurrent states fp32, ``index`` and the
+    hybrid's ``slot_pos`` int32."""
+    f32 = torch.float32
 
-    cache: Dict[str, Any] = {
-        "index": torch.empty((), dtype=torch.int32, device="meta")}
+    def meta(shape, dtype=cfg.torch_dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    cache: Dict[str, Any] = {"index": meta((), torch.int32)}
     if cfg.family in ("dense", "vlm"):
         shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
                  cfg.hd)
@@ -335,17 +332,43 @@ def init_cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int):
                 for key, w in widths.items():
                     cache[f"{pre}_{key}"] = meta(
                         (cnt, batch_size, max_len) + w)
+    elif cfg.family == "hybrid":
+        n_super, rem = _hybrid_layout(cfg)
+        kinds = list(cfg.block_pattern) * n_super + list(rem)
+        n_attn, n_rec = kinds.count("attn"), kinds.count("rec")
+        w = min(max_len, cfg.attn_window or max_len)    # a rolling window
+        shape = (n_attn, batch_size, w, cfg.num_kv_heads, cfg.hd)
+        cache["k"], cache["v"] = meta(shape), meta(shape)
+        cache["slot_pos"] = meta((w,), torch.int32)
+        cache["lru_h"] = meta((n_rec, batch_size, cfg.lru_width), f32)
+        cache["conv"] = meta((n_rec, batch_size, cfg.conv1d_width - 1,
+                              cfg.lru_width))
+    elif cfg.family == "ssm":
+        inner = 2 * cfg.d_model
+        h, dh = cfg.num_heads, inner // cfg.num_heads
+        n_super, n_m = _xlstm_layout(cfg)
+        nm = n_super * n_m
+        cache["m_C"] = meta((nm, batch_size, h, dh, dh), f32)
+        cache["m_n"] = meta((nm, batch_size, h, dh), f32)
+        cache["m_m"] = meta((nm, batch_size, h), f32)
+        cache["m_conv"] = meta((nm, batch_size, cfg.conv1d_width - 1, inner))
+        for key in ("s_h", "s_c", "s_n", "s_m"):
+            cache[key] = meta((n_super, batch_size, cfg.d_model), f32)
     else:
-        raise not_ported(cfg, "the decode cache")
+        raise ValueError(cfg.family)
     return cache
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device="cuda"):
     """A zeroed decode cache on ``device`` (the card unless the caller
-    asks for the CPU); ``index`` is the int 0."""
+    asks for the CPU); ``index`` is the int 0 and the hybrid's
+    ``slot_pos`` -1 (no position held)."""
     shapes = init_cache_shapes(cfg, batch_size, max_len)
     device = resolve_device(device)
-    return {key: 0 if key == "index" else
-            torch.zeros(m.shape, dtype=m.dtype, device=device)
-            for key, m in shapes.items()}
+    cache = {key: 0 if key == "index" else
+             torch.zeros(m.shape, dtype=m.dtype, device=device)
+             for key, m in shapes.items()}
+    if "slot_pos" in cache:
+        cache["slot_pos"].fill_(-1)
+    return cache

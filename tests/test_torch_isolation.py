@@ -127,9 +127,10 @@ from repro_torch.launch import serve as lm_serve
 lm = lm_serve.main(["--arch", "granite-3-8b", "--smoke", "--device", "cpu",
                     "--requests", "2", "--max-new", "3"])
 assert [len(r.output) for r in lm] == [3, 3]
-lm = lm_serve.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--device",
-                    "cpu", "--requests", "2", "--max-new", "3"])
-assert [len(r.output) for r in lm] == [3, 3]
+for arch in ("granite-moe-3b-a800m", "recurrentgemma-2b", "xlstm-1.3b"):
+    lm = lm_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--requests", "2", "--max-new", "3"])
+    assert [len(r.output) for r in lm] == [3, 3]
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("served", [round(r.compliance, 3) for r in done + got + [far]])
