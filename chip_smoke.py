@@ -211,7 +211,29 @@ Phases, one JSON line each on stdout:
      spread, and the greedy tokens of 4 steps on both. memory_allocated
      before and after (all freed), peak. No kernel: the reference's
      recurrent blocks call none (its sLSTM is a scan, not slstm_fused).
- 13. contracts — one tick at width 4 equals the same slots' tick at width 2
+ 13. lm_training — xlstm-1.3b whole (48 layers, d 2048, 2.01B weights,
+     bf16 with fp32 masters and moments: 28.16 GB of state; remat "full";
+     weights at std 1/sqrt(fan-in), a stand-in: under materialize's rule,
+     the reference's, the sLSTM's gradient overflows fp32, ROADMAP §C)
+     trained through launch/train.py's Trainer: batch 4 x 256 tokens in
+     two microbatches, 4 steps, a checkpoint every 2, each step
+     synchronised and timed; then a fresh Trainer resumes from the step-2
+     checkpoint to step 4. Only the step-2 checkpoint is written (32.2 GB,
+     under TMPDIR); the saves at step 4 are recorded. Gates: losses and
+     grad_norm finite, grad_norm > 0, the params moved, the saves asked
+     for, the resumed losses within 1e-4 of the straight run's (bitwise
+     equality reported). Reported: s a step, tokens/s, peak memory, state
+     bytes, checkpoint save and restore s. Then fp32, TF32 off:
+     granite-3-8b at depth 2, full width, drawn at 40 layers' scale, one
+     train step's loss, grad_norm, gradients and mu card against CPU
+     (the CPU's float64 run as the spread), and one xlstm superblock's
+     blocks' vjps teacher-forced at S 16 (sequential mLSTM) and 128
+     (chunkwise) from 3 seeds each, card and CPU against float64, pooled
+     over blocks and seeds of a kind: the card's median within 2x the
+     CPU's, its worst within 4x the CPU's worst (the sLSTM at S 16 only:
+     at 128 its backward is chaotic on either device).
+     Frees what it allocates. No kernel: the LM training path calls none.
+ 14. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
@@ -232,6 +254,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -2968,7 +2991,73 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
 
 
-def rec_fp32_check(cfg, specs, toks, dev) -> dict:
+def op_replay(fn, args, kw, dev, top: int = 8) -> dict:
+    """Every floating-point aten op of ``fn(*args, **kw)`` on the host CPU
+    recorded with its inputs and output, then replayed on the card from
+    the CPU's inputs (op by op, teacher-forced) and on the CPU at one
+    thread: each op's card error and the CPU's own spread over max |out|.
+    Returns the ``top`` ops by card error, in order of the call, how many
+    ops differ at all, and those on the card by op (count, worst error)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_map
+    ops = []
+
+    def clone(t):
+        return t.detach().clone() if isinstance(t, torch.Tensor) else t
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), k=None):
+            k = k or {}
+            res = func(*a, **k)
+            if (isinstance(res, torch.Tensor) and res.is_floating_point()
+                    and res.numel()):
+                ops.append((func, tree_map(clone, a), tree_map(clone, k),
+                            clone(res)))
+            return res
+
+    with torch.no_grad(), Record():
+        fn(*args, **kw)
+
+    def to_card(t):
+        if isinstance(t, torch.Tensor):
+            return t.to(dev)
+        return dev if isinstance(t, torch.device) else t
+
+    def err(got, want):
+        got, want = got.double().cpu(), want.double()
+        finite = torch.isfinite(want)
+        scale = float(want[finite].abs().max()) if finite.any() else 1.0
+        return float((got - want)[finite].abs().max()) / max(scale, 1e-30)
+
+    rows = []
+    threads = torch.get_num_threads()
+    for i, (func, a, k, want) in enumerate(ops):
+        with torch.no_grad():
+            card = func(*tree_map(to_card, a), **tree_map(to_card, k))
+            torch.set_num_threads(1)
+            try:
+                one = func(*a, **k)
+            finally:
+                torch.set_num_threads(threads)
+        rows.append({"index": i, "op": str(func), "shape": list(want.shape),
+                     "card_vs_cpu": err(card, want),
+                     "cpu_one_thread_vs_all": err(one, want)})
+    worst = sorted(rows, key=lambda r: r["card_vs_cpu"])[-top:]
+    differing = {}
+    for r in rows:
+        if r["card_vs_cpu"] > 0:
+            n, e = differing.get(r["op"], (0, 0.0))
+            differing[r["op"]] = (n + 1, max(e, r["card_vs_cpu"]))
+    return {"ops": len(rows),
+            "ops_differing_on_card": sum(r["card_vs_cpu"] > 0 for r in rows),
+            "ops_differing_on_one_cpu_thread":
+                sum(r["cpu_one_thread_vs_all"] > 0 for r in rows),
+            "differing_on_card_by_op": differing,
+            "top": sorted(worst, key=lambda r: r["index"])}
+
+
+def rec_fp32_check(cfg, specs, toks, dev, replay=False) -> dict:
     """The recurrent families' fp32 checks on weights drawn from ``specs``
     (seed 0) on the card and copied to the host, gated by the caller:
     each block on the card from the host CPU's input to it against the
@@ -2980,7 +3069,8 @@ def rec_fp32_check(cfg, specs, toks, dev) -> dict:
     the card end to end (gated where the CPU's own spread, one thread
     against all, is under the bar). Reported: the card's forward against
     the CPU's beside that spread, and the greedy tokens of
-    LM_GREEDY_STEPS steps on both."""
+    LM_GREEDY_STEPS steps on both; with ``replay``, the block furthest
+    from the CPU replayed op by op (``op_replay``)."""
     import torch
     from repro_torch.common import map_params, materialize
     from repro_torch.models import model as M
@@ -3022,6 +3112,12 @@ def rec_fp32_check(cfg, specs, toks, dev) -> dict:
         one_thread, _ = M.forward(cfg, p_cpu, {"tokens": toks})
     finally:
         torch.set_num_threads(threads)
+    worst_ops = None
+    if replay:
+        i = max(range(len(block_errs)), key=lambda j: block_errs[j][1])
+        name, fn, args, kw, _ = blocks[i]
+        worst_ops = {"block_index": i, "block": name,
+                     **op_replay(fn, args, kw, dev)}
     greedy_card = lm_greedy(D, cfg, p_card, toks.to(dev), LM_GREEDY_STEPS,
                             ss + LM_GREEDY_STEPS)
     greedy_cpu = lm_greedy(D, cfg, p_cpu, toks, LM_GREEDY_STEPS,
@@ -3037,7 +3133,8 @@ def rec_fp32_check(cfg, specs, toks, dev) -> dict:
         "cpu_one_thread_vs_all": lm_max_err(one_thread, full_cpu, v),
         "cpu_threads": threads,
         "greedy_tokens_differing": int((greedy_card != greedy_cpu).sum()),
-        "greedy_tokens": greedy_card.tolist()}
+        "greedy_tokens": greedy_card.tolist(),
+        "worst_block_op_replay": worst_ops}
 
 
 def rglru_scan_check(cfg, dev) -> dict:
@@ -3269,7 +3366,8 @@ def phase_lm_recurrent(ctx):
             specs = M.param_specs(cfg)
             toks = torch.randint(0, cfg.vocab_size, LM_CHECK_SHAPE,
                                  generator=gen)
-            chk = rec_fp32_check(cfg, at_scales(specs, scales), toks, dev)
+            chk = rec_fp32_check(cfg, at_scales(specs, scales), toks, dev,
+                                 replay=True)
             checks[name] = {
                 "layers": layers, "weights": param_count(specs),
                 "batch": LM_CHECK_SHAPE[0], "tokens": LM_CHECK_SHAPE[1],
@@ -3296,6 +3394,434 @@ def phase_lm_recurrent(ctx):
         out["fp32_check"] = checks
         if max(errs) > LM_REL_TOL:
             failures.append(f"fp32 checks over {LM_REL_TOL}: {errs}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev)
+    out["memory_allocated_after"] = after
+    out["peak_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    if after > before + LM_FREE_SLACK:
+        failures.append(f"memory_allocated {before} before, {after} after")
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+LM_TRAIN_ARGV = ["--arch", "xlstm-1.3b", "--steps", "4", "--batch", "4",
+                 "--seq", "256", "--microbatches", "2", "--ckpt-every", "2"]
+                                # xlstm-1.3b whole: its AdamW state (fp32
+                                # masters and moments, ~16 bytes a weight)
+                                # is what one H100 holds; seq 256, a multiple
+                                # of 64, takes the mLSTM's chunkwise form (a
+                                # step took 27 s at 512, 11.7 s at 256)
+LM_TRAIN_RESUME_AT = 2          # the fresh Trainer resumes from this step,
+                                # the one checkpoint written (32.2 GB: a
+                                # call may write 45 GiB to its disk, deleted
+                                # files included)
+LM_TRAIN_RESUME_REL = 1e-4      # resumed losses vs the straight run's
+LM_TRAIN_CHECK = ("granite-3-8b", 2, 40)   # depth-2 fp32 step card vs CPU,
+                                           # drawn at 40 layers' scale
+LM_TRAIN_BLOCK_S = (16, 128)    # xlstm superblock vjps (batch 1): both
+                                # mLSTM forms
+LM_TRAIN_BLOCK_SEEDS = 3        # inputs and cotangents drawn per S; the
+                                # errors are pooled over blocks and seeds
+LM_TRAIN_INIT = ("at_fan_in: every 'normal' leaf drawn at std "
+                 "1/sqrt(shape[-2]), a stand-in for materialize's "
+                 "1/sqrt(shape[0]), under which the sLSTM's gradient "
+                 "overflows fp32 (ROADMAP §C, open)")
+
+
+@contextlib.contextmanager
+def ckpt_timed(rows, write_step):
+    """Wall seconds of every ``checkpoint.manager`` save and restore while
+    the block runs (wrapped here, put back after). Only the save of step
+    ``write_step`` is written: any other is recorded (its step and extras)
+    and not written, since one checkpoint of the model fills most of what
+    a call may write to its disk."""
+    from repro_torch.checkpoint import manager as ckpt
+    saved = {name: getattr(ckpt, name) for name in ("save", "restore")}
+
+    def timed(name):
+        fn = saved[name]
+
+        def call(*args, **kw):
+            if name == "save" and args[1] != write_step:
+                rows.append(("save_not_written", args[1],
+                             kw.get("extras")))
+                return None
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            rows.append((name, time.perf_counter() - t0))
+            return res
+        return call
+
+    for name in saved:
+        setattr(ckpt, name, timed(name))
+    try:
+        yield rows
+    finally:
+        for name, fn in saved.items():
+            setattr(ckpt, name, fn)
+
+
+def at_fan_in(specs):
+    """``specs`` with every "normal" leaf drawn at std 1/sqrt(its matrix's
+    input width, ``shape[-2]``). ``materialize``'s rule (the reference's)
+    takes ``shape[0]``, the layer count of a stacked weight: xlstm-1.3b's
+    sLSTM recurrent matrix (512 wide) then draws at std 1/sqrt(6), and
+    backward through the recurrence overflows fp32 in both packages (the
+    gradient norm is inf from seq 64 and NaN at 256 on the card;
+    ``LM_TRAIN_INIT``, ROADMAP §C)."""
+    import dataclasses
+    from repro_torch.common import map_params
+    return map_params(lambda sp: dataclasses.replace(
+        sp, init=("scaled", sp.shape[-2])) if sp.init == "normal" else sp,
+        specs)
+
+
+def lm_train_run(trainer) -> dict:
+    """``trainer.run()`` with every step synchronised and timed (its
+    metrics read on the host), and its checkpoints' save and restore
+    seconds (``ckpt_timed``: only step LM_TRAIN_RESUME_AT's is written).
+    Returns the run's params and optimizer state too."""
+    import torch
+    rows, io = [], []
+    fn = trainer.step_fn
+
+    def step(*args):
+        sync()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        sync()
+        rows.append({"step_s": time.perf_counter() - t0,
+                     **{k: float(v) for k, v in res[2].items()}})
+        return res
+
+    trainer.step_fn = step
+    torch.cuda.reset_peak_memory_stats(trainer.device)
+    t0 = time.perf_counter()
+    with ckpt_timed(io, LM_TRAIN_RESUME_AT):
+        params, opt, hist = trainer.run()
+    return {"params": params, "opt": opt, "history": hist, "steps": rows,
+            "checkpoint_io_s": io, "wall_s": time.perf_counter() - t0,
+            "peak_memory_allocated":
+                torch.cuda.max_memory_allocated(trainer.device)}
+
+
+def train_step_check(cfg, params, toks, dev) -> dict:
+    """One fp32 train step's parts (``train.steps._value_and_grad``, then
+    ``adamw.apply_updates`` from a fresh state: the step at one
+    microbatch) on the card against the host CPU on the same weights and
+    tokens, and the CPU on float64 weights and inputs (its fp32 casts kept)
+    as the spread: loss within 1e-4 of max(1, |loss|) or twice the spread,
+    grad_norm relative, each gradient and mu leaf within 1e-4 of its max
+    |g| or four times the spread (tests/test_torch_lm_train_step.py's
+    bars). Returns the worst ratio of error to bar (gate: <= 1)."""
+    import dataclasses
+    import torch
+    from repro_torch.common import map_params, tree_leaves
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+
+    @dataclasses.dataclass(frozen=True)
+    class Float64(ModelConfig):
+        @property
+        def torch_dtype(self):
+            return torch.float64
+
+    tc = TS.TrainConfig()
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+
+    def run(device, dtype=None):
+        c = Float64(**dataclasses.asdict(cfg)) if dtype else cfg
+        p = map_params(lambda t: t.to(device, dtype or t.dtype), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        (lv, _), g = TS._value_and_grad(c, tc, p, b)
+        _, o2, m = adamw.apply_updates(tc.optimizer, p, g,
+                                       adamw.init_state(tc.optimizer, p))
+        return {"loss": float(lv), "grad_norm": float(m["grad_norm"]),
+                "grad": {k: t.float().cpu() for k, t in tree_leaves(g)},
+                "mu": {k: t.float().cpu() for k, t in tree_leaves(o2.mu)}}
+
+    cpu = run("cpu")
+    f64 = run("cpu", torch.float64)     # kept only as per-leaf spreads
+    spread = {part: {k: float((t - f64[part][k]).abs().max())
+                     for k, t in cpu[part].items()} for part in ("grad", "mu")}
+    scalars64 = {k: f64[k] for k in ("loss", "grad_norm")}
+    del f64
+    card = run(dev)
+    ratios = {"loss": abs(card["loss"] - cpu["loss"]) / max(
+        1e-4 * max(1.0, abs(cpu["loss"])),
+        2 * abs(cpu["loss"] - scalars64["loss"])),
+        "grad_norm": abs(card["grad_norm"] - cpu["grad_norm"]) / max(
+            1e-4 * cpu["grad_norm"],
+            4 * abs(cpu["grad_norm"] - scalars64["grad_norm"]))}
+    for part in ("grad", "mu"):
+        for k, want in cpu[part].items():
+            bar = max(1e-4 * float(want.abs().max()), 4 * spread[part][k],
+                      1e-30)
+            ratios[f"{part}/{k}"] = float(
+                (card[part][k] - want).abs().max()) / bar
+    worst = max(ratios, key=ratios.get)
+    return {"loss": [card["loss"], cpu["loss"], scalars64["loss"]],
+            "grad_norm": [card["grad_norm"], cpu["grad_norm"],
+                          scalars64["grad_norm"]],
+            "worst": worst, "worst_error_over_bar": ratios[worst],
+            "loss_error_over_bar": ratios["loss"],
+            "grad_norm_error_over_bar": ratios["grad_norm"]}
+
+
+def xlstm_block_vjps(cfg, params, s: int, seed: int, dev,
+                     slstm: bool) -> dict:
+    """One xlstm superblock (its sLSTM, then its mLSTMs) at full width,
+    teacher-forced: the host CPU runs the blocks in order from a random
+    input and back from a random cotangent (drawn from ``seed``); each
+    block's vjp (params and input) is then taken on the card from the CPU's
+    input to it and the CPU's cotangent at its output, against the CPU's
+    own vjp of the same and the CPU's on float64 weights and inputs (the
+    blocks' fp32 casts kept). Batch 1. Errors over each leaf's max |g|,
+    the worst leaf of each block (named for the card's). The sLSTM's own
+    vjps only with ``slstm``."""
+    import torch
+    from repro_torch.models import recurrent as R
+    from repro_torch.models.transformer import layer_params
+    gen = torch.Generator().manual_seed(1000 * seed + s)
+    sb = params["superblocks"]
+    n_m = cfg.slstm_every - 1
+    blocks = [(R.apply_slstm_block, layer_params(sb["slstm"], 0))] + [
+        (R.apply_mlstm_block, layer_params(sb["mlstm"], i))
+        for i in range(n_m)]
+    xs = [torch.randn((1, s, cfg.d_model), generator=gen)]
+    for fn, p in blocks:
+        xs.append(fn(cfg, p, xs[-1])[0].detach())
+    cts = [torch.randn(xs[-1].shape, generator=gen)]   # at each output
+    for (fn, p), x in zip(reversed(blocks[1:]), reversed(xs[1:-1])):
+        xr = x.clone().requires_grad_(True)
+        cts.insert(0, torch.autograd.grad(fn(cfg, p, xr)[0], xr, cts[0])[0])
+
+    def vjp(fn, p, x, ct, device, dtype=torch.float32):
+        leaves = {k: t.to(device, dtype).requires_grad_(True)
+                  for k, t in p.items()}
+        xr = x.to(device, dtype).requires_grad_(True)
+        g = torch.autograd.grad(fn(cfg, leaves, xr)[0],
+                                list(leaves.values()) + [xr],
+                                ct.to(device, dtype))
+        return dict(zip(list(leaves) + ["x"], (t.double().cpu() for t in g)))
+
+    def errs(got, want):
+        return {k: float((got[k] - w).abs().max() / w.abs().max().clamp_min(
+            1e-30)) for k, w in want.items()}
+
+    rows = []
+    for i, (fn, p) in enumerate(blocks):
+        if i == 0 and not slstm:
+            continue
+        x, ct = xs[i], cts[i]
+        cpu, card = vjp(fn, p, x, ct, "cpu"), vjp(fn, p, x, ct, dev)
+        f64 = vjp(fn, p, x, ct, "cpu", torch.float64)
+        card64 = errs(card, f64)
+        leaf = max(card64, key=card64.get)
+        rows.append({"block": fn.__name__,
+                     "card_vs_cpu": max(errs(card, cpu).values()),
+                     "card_vs_float64": card64[leaf],
+                     "cpu_vs_float64": max(errs(cpu, f64).values()),
+                     "card_worst_leaf": leaf})
+    return {"steps": s, "seed": seed, "blocks": rows}
+
+
+def phase_lm_training(ctx):
+    """LM training on the card: xlstm-1.3b whole (48 layers, d 2048, 2.01B
+    weights; bf16 with fp32 masters, remat "full"; weights at std
+    1/sqrt(fan-in), ``at_fan_in``, LM_TRAIN_INIT), driven through
+    launch/train.py's ``Trainer`` (LM_TRAIN_ARGV: batch 4, seq 256, two
+    microbatches, 4 steps, a checkpoint every 2), every step synchronised
+    and timed; then a fresh Trainer resumes from the step-2 checkpoint to
+    step 4. The step-2 checkpoint is the one written (under TMPDIR); the
+    Trainers' saves at step 4 are recorded, not written (``ckpt_timed``).
+    Gates: every loss and grad_norm finite, grad_norm > 0, the params
+    moved, the saves asked for at steps 2 and 4 and then 4, the resumed
+    steps' losses within LM_TRAIN_RESUME_REL of the straight run's
+    (bitwise equality of losses and final params reported). Reported:
+    seconds a step (median after the first), tokens/s, peak memory, the
+    bytes of params and optimizer state, checkpoint save and restore
+    seconds. Then fp32 (TF32 off): granite-3-8b at depth 2, full width,
+    drawn at 40 layers' scale, one step's loss, grad_norm, gradients and
+    mu card against CPU (gated at the CPU tests' bars), and an xlstm
+    superblock's blocks teacher-forced in both mLSTM forms from
+    LM_TRAIN_BLOCK_SEEDS inputs each, each block's vjp on the card and the
+    CPU against the CPU's float64 run. A block's error (over each leaf's
+    max |g|) moves 10x and more between seeds on either device, and the
+    card is the further from float64 in about half the (block, seed)
+    pairs, so the errors of a kind and S are pooled over blocks and seeds:
+    the card's median within twice the CPU's, its worst within four times
+    the CPU's worst (or LM_REL_TOL); the sLSTM only at S 16 (at S 128
+    backward through its recurrence parts fp32 from float64 by O(1) on
+    the CPU too, so it is not run there).
+    Frees what it allocates. No kernel: the LM training path calls
+    none."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.common import (map_params, materialize, param_count,
+                                    tree_bytes, tree_leaves)
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    dev = ctx["device"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    failures = []
+    out = {"phase": "lm_training", "nvidia_smi": ctx["smi"],
+           "memory_allocated_before": before, "argv": LM_TRAIN_ARGV}
+    t_phase = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_training_")
+    argv = LM_TRAIN_ARGV + ["--ckpt-dir", ckpt_dir]
+    try:
+        out["disk_free_bytes"] = shutil.disk_usage(ckpt_dir).free
+        trainer = launch_train.build(argv)
+        trainer.specs = at_fan_in(trainer.specs)
+        cfg, rc = trainer.cfg, trainer.rc
+        first = lm_train_run(trainer)
+        params, opt = first.pop("params"), first.pop("opt")
+        state_bytes = tree_bytes(params) + sum(
+            tree_bytes(t) for t in (opt.mu, opt.nu, opt.master))
+        final = {k: t.cpu() for k, t in tree_leaves(params)}
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        init = materialize(trainer.specs, rc.seed, device=dev)
+        unchanged = [k for k, t in tree_leaves(init)
+                     if torch.equal(t.cpu(), final[k])]
+        moved = sum(float((t.float() - final[k].to(dev).float()).abs().sum())
+                    for k, t in tree_leaves(init))
+        del init
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = launch_train.build(argv)
+        fresh.specs = trainer.specs
+        resumed = lm_train_run(fresh)
+        p2 = resumed.pop("params")
+        resumed.pop("opt")
+        same_params = all(torch.equal(t.cpu(), final[k])
+                          for k, t in tree_leaves(p2))
+        del p2
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows = first["steps"]
+        tail = rows[LM_TRAIN_RESUME_AT:]
+        times = sorted(r["step_s"] for r in rows[1:])
+        median = times[len(times) // 2] if len(times) % 2 else \
+            0.5 * (times[len(times) // 2 - 1] + times[len(times) // 2])
+        tokens = rc.batch * rc.seq
+        resume_errs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(resumed["steps"], tail)]
+        out["xlstm"] = {
+            "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "remat": cfg.remat, "init": LM_TRAIN_INIT,
+            "weights": param_count(trainer.specs),
+            "batch": rc.batch, "seq": rc.seq,
+            "microbatches": trainer.tc.microbatches,
+            "params_and_optimizer_bytes": state_bytes,
+            "steps": rows, "step_s_median_after_first": median,
+            "tokens_per_s": tokens / median,
+            "peak_memory_allocated": first["peak_memory_allocated"],
+            "checkpoint_io_s": first["checkpoint_io_s"],
+            "wall_s": first["wall_s"],
+            "leaves_unchanged": unchanged, "sum_abs_moved": moved,
+            "resumed": {"from_step": LM_TRAIN_RESUME_AT,
+                        "steps": resumed["steps"],
+                        "checkpoint_io_s": resumed["checkpoint_io_s"],
+                        "wall_s": resumed["wall_s"],
+                        "peak_memory_allocated":
+                            resumed["peak_memory_allocated"],
+                        "loss_rel_err": resume_errs,
+                        "losses_bitwise": [a["loss"] == b["loss"] for a, b
+                                           in zip(resumed["steps"], tail)],
+                        "final_params_bitwise": same_params}}
+        values = [r[k] for r in rows + resumed["steps"]
+                  for k in ("loss", "grad_norm")]
+        if not all(math.isfinite(v) for v in values):
+            failures.append(f"non-finite loss or grad_norm: {values}")
+        if not all(r["grad_norm"] > 0 for r in rows):
+            failures.append("grad_norm 0")
+        if not moved > 0:
+            failures.append("params did not move")
+        if len(resumed["steps"]) != len(tail) or \
+                max(resume_errs) > LM_TRAIN_RESUME_REL:
+            failures.append(f"resumed losses part: {resume_errs}")
+        asked = [[r[1] for r in run["checkpoint_io_s"]
+                  if r[0] == "save_not_written"] for run in (first, resumed)]
+        written = [[r[0] for r in run["checkpoint_io_s"]]
+                   for run in (first, resumed)]
+        if asked != [[rc.steps], [rc.steps]] or \
+                written != [["save", "save_not_written"],
+                            ["restore", "save_not_written"]]:
+            failures.append(f"checkpoints: {written}, not written {asked}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # -- fp32 at full width, card against CPU
+    checks = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    name, depth, scale = LM_TRAIN_CHECK
+    cfg = dataclasses.replace(get_config(name), num_layers=depth,
+                              dtype="float32")
+    specs = at_layer_scale(M.param_specs(cfg), ("blocks",), scale)
+    params = map_params(lambda t: t.cpu(), materialize(specs, seed=0,
+                                                       device=dev))
+    toks = torch.randint(0, cfg.vocab_size, LM_CHECK_SHAPE,
+                         generator=torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    chk = train_step_check(cfg, params, toks, dev)
+    chk["check_s"] = time.perf_counter() - t0
+    checks[name] = {"layers": depth, "scale_layers": scale,
+                    "batch": LM_CHECK_SHAPE[0], "tokens": LM_CHECK_SHAPE[1],
+                    **chk}
+    if chk["worst_error_over_bar"] > 1:
+        failures.append(f"{name} fp32 step: {chk['worst']} at "
+                        f"{chk['worst_error_over_bar']} of its bar")
+    del params
+    t0 = time.perf_counter()
+    xl = dataclasses.replace(get_config("xlstm-1.3b"), num_layers=8,
+                             dtype="float32")
+    specs = at_scales(M.param_specs(xl), LM_REC_CHECK["xlstm-1.3b"][1])
+    params = map_params(lambda t: t.cpu(), materialize(specs, seed=0,
+                                                       device=dev))
+    runs = [xlstm_block_vjps(xl, params, s, seed, dev,
+                             slstm=s == min(LM_TRAIN_BLOCK_S))
+            for s in LM_TRAIN_BLOCK_S for seed in range(LM_TRAIN_BLOCK_SEEDS)]
+    pooled = []
+    for s in LM_TRAIN_BLOCK_S:
+        for kind in {r["block"]: 0 for c in runs if c["steps"] == s
+                     for r in c["blocks"]}:
+            rows = [r for c in runs if c["steps"] == s
+                    for r in c["blocks"] if r["block"] == kind]
+            card = sorted(r["card_vs_float64"] for r in rows)
+            cpu = sorted(r["cpu_vs_float64"] for r in rows)
+            pooled.append({
+                "steps": s, "block": kind, "samples": len(rows),
+                "card_worse_in": sum(r["card_vs_float64"]
+                                     > r["cpu_vs_float64"] for r in rows),
+                "card_median": statistics.median(card),
+                "cpu_median": statistics.median(cpu),
+                "card_worst": card[-1], "cpu_worst": cpu[-1]})
+    checks["xlstm-1.3b"] = {"runs": runs, "pooled": pooled}
+    over = [g for g in pooled if (
+        g["card_median"] > 2 * g["cpu_median"]
+        or g["card_worst"] > max(LM_REL_TOL, 4 * g["cpu_worst"]))]
+    if over:
+        failures.append(f"xlstm block vjps card vs CPU over their bars: "
+                        f"{over}")
+    del params
+    checks["xlstm_vjps_s"] = time.perf_counter() - t0
+    out["fp32_check"] = checks
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3367,7 +3893,8 @@ def main() -> int:
     for phase in (phase_build, phase_kernels, phase_fusion, phase_breakdown,
                   phase_lm_kernels, phase_serving, phase_gateway,
                   phase_workers, phase_flywheel, phase_lm_serving,
-                  phase_lm_moe, phase_lm_recurrent, phase_contracts):
+                  phase_lm_moe, phase_lm_recurrent, phase_lm_training,
+                  phase_contracts):
         try:
             phase(ctx)
         except Exception:

@@ -7,11 +7,13 @@ Layout:
   <dir>/step_<N:08d>/manifest.json, arrays.npz, extras.json  (after rename)
   <dir>/LATEST                   (atomic pointer file)
 
-A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays or numbers. Its keys are the reference's: dict keys and list
-indices joined by ``/``, dicts walked in sorted key order (as JAX flattens
-them), so ``{"params": {"trunk": {"conv1": w}}}`` saves ``w`` under
-``params/trunk/conv1``. Leaves numpy cannot hold (bfloat16) are upcast to
+A tree is nested dicts, lists, tuples and NamedTuples whose leaves are
+tensors, numpy arrays or numbers. Its keys are the reference's: dict
+keys, list indices and NamedTuple fields (``.name``, as JAX renders a
+``GetAttrKey``) joined by ``/``, dicts walked in sorted key order (as JAX
+flattens them), so ``{"params": {"trunk": {"conv1": w}}}`` saves ``w``
+under ``params/trunk/conv1`` and an ``AdamWState``'s step under
+``opt/.step``. Leaves numpy cannot hold (bfloat16) are upcast to
 float32 on save; ``restore`` casts back to the dtype of the ``like`` tree
 (round to nearest even, as ``jnp.astype`` does).
 """
@@ -39,10 +41,17 @@ def _items(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     if isinstance(tree, dict):
         return [pair for k in sorted(tree)
                 for pair in _items(tree[k], prefix + (k,))]
+    if _is_namedtuple(tree):
+        return [pair for f in tree._fields
+                for pair in _items(getattr(tree, f), prefix + ("." + f,))]
     if isinstance(tree, (list, tuple)):
         return [pair for i, v in enumerate(tree)
                 for pair in _items(v, prefix + (i,))]
     return [(prefix, tree)]
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
 def _key(path: Tuple) -> str:
@@ -60,6 +69,10 @@ def _map_with_paths(fn: Callable[[str, Any], Any], tree, prefix=()):
     if isinstance(tree, dict):
         return {k: _map_with_paths(fn, v, prefix + (k,))
                 for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*[_map_with_paths(fn, getattr(tree, f),
+                                            prefix + ("." + f,))
+                            for f in tree._fields])
     if isinstance(tree, (list, tuple)):
         out = [_map_with_paths(fn, v, prefix + (i,))
                for i, v in enumerate(tree)]
@@ -138,9 +151,13 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
     """Restore into the structure of ``like`` (a tree of tensors, or of
     meta tensors such as ``torch.empty(shape, dtype=..., device="meta")``):
     each leaf comes back as a tensor of the like leaf's dtype on
-    ``device`` (the card unless the caller asks for the CPU). Verifies the
-    content hashes first and raises on a key ``like`` has and the
-    checkpoint lacks. Returns (tree, extras)."""
+    ``device`` (the card unless the caller asks for the CPU), except a 0-d
+    leaf whose like is a CPU tensor, which stays on the CPU (an
+    ``AdamWState.step``: ``adamw`` keeps its step count on the host).
+    NamedTuples come back as their own type. Raises on a key ``like`` has
+    and the checkpoint lacks, and on any member whose content hash does
+    not match (each member is read once, and checked before it is used).
+    Returns (tree, extras)."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -150,19 +167,28 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(final, "arrays.npz"))
-
-    for k in manifest["keys"]:
-        if _digest(data[k]) != manifest["hashes"][k]:
-            raise IOError(f"checkpoint corruption detected in {k}")
-
-    missing = set(_flatten_with_paths(like)) - set(manifest["keys"])
+    wanted = _flatten_with_paths(like)
+    missing = set(wanted) - set(manifest["keys"])
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
 
+    def read(key):
+        """The member, read once and checked against its hash."""
+        a = data[key]
+        if _digest(a) != manifest["hashes"][key]:
+            raise IOError(f"checkpoint corruption detected in {key}")
+        return a
+
+    for k in manifest["keys"]:
+        if k not in wanted:
+            read(k)
+
     def load(key, leaf):
-        val = torch.from_numpy(np.array(data[key]))
+        val = torch.from_numpy(read(key))
         if val.dtype != leaf.dtype:
             val = val.to(leaf.dtype)
+        if leaf.dim() == 0 and leaf.device.type == "cpu":
+            return val
         return val.to(dev)
 
     tree = _map_with_paths(load, like)

@@ -188,23 +188,32 @@ def moe_layers(cfg: ModelConfig, params, x, positions, *, cache=None,
                cache_index=None):
     """The moe family's layers in order: ``num_dense_layers`` dense blocks,
     then the MoE blocks (the MTP module does not run here, as in the
-    reference). ``cache`` holds the stacked ``d_*`` / ``m_*`` leaves,
-    written in place. Returns (x, aux summed over the MoE layers)."""
+    reference); without a cache each layer is one remat unit. ``cache``
+    holds the stacked ``d_*`` / ``m_*`` leaves, written in place. Returns
+    (x, aux summed over the MoE layers)."""
     keys = ("ckv", "krope") if cfg.use_mla else ("k", "v")
 
     def layer_cache(pre, i):
         return (None if cache is None else
                 {k: cache[f"{pre}_{k}"][i] for k in keys})
 
+    def dense(xv, p, i):
+        return _dense_block(cfg, p, xv, positions,
+                            kv_cache=layer_cache("d", i),
+                            cache_index=cache_index)
+
+    def moe(xv, p, i):
+        return _moe_block(cfg, p, xv, positions,
+                          kv_cache=layer_cache("m", i),
+                          cache_index=cache_index)
+
+    if cache is None:       # one remat unit a layer, the reference's scan body
+        dense, moe = T._maybe_remat(dense, cfg), T._maybe_remat(moe, cfg)
     for i in range(cfg.num_dense_layers):
-        x = _dense_block(cfg, T.layer_params(params["dense_blocks"], i), x,
-                         positions, kv_cache=layer_cache("d", i),
-                         cache_index=cache_index)
+        x = dense(x, T.layer_params(params["dense_blocks"], i), i)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers - cfg.num_dense_layers):
-        x, aux = _moe_block(cfg, T.layer_params(params["moe_blocks"], i), x,
-                            positions, kv_cache=layer_cache("m", i),
-                            cache_index=cache_index)
+        x, aux = moe(x, T.layer_params(params["moe_blocks"], i), i)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -252,21 +261,28 @@ def store_state(views, new):
 
 def xlstm_layers(cfg: ModelConfig, params, x, *, cache=None):
     """The ssm family's layers in order: each superblock is one sLSTM, then
-    ``slstm_every - 1`` mLSTM from the flat ``mlstm`` stack. ``cache``
-    holds the stacked ``s_*`` and ``m_*`` states, read and written in
-    place."""
+    ``slstm_every - 1`` mLSTM from the flat ``mlstm`` stack, and without
+    a cache one remat unit (the reference's scan body). ``cache`` holds
+    the stacked ``s_*`` and ``m_*`` states, read and written in place."""
     n_super, n_m = _xlstm_layout(cfg)
     sb = params["superblocks"]
-    for si in range(n_super):
+
+    def superblock(xv, si):
         st = layer_state(cache, "slstm", si)
-        x, nst = REC.apply_slstm_block(
-            cfg, T.layer_params(sb["slstm"], si), x, state=st)
+        xv, nst = REC.apply_slstm_block(
+            cfg, T.layer_params(sb["slstm"], si), xv, state=st)
         store_state(st, nst)
         for mi in range(si * n_m, (si + 1) * n_m):
             st = layer_state(cache, "mlstm", mi)
-            x, nst = REC.apply_mlstm_block(
-                cfg, T.layer_params(sb["mlstm"], mi), x, state=st)
+            xv, nst = REC.apply_mlstm_block(
+                cfg, T.layer_params(sb["mlstm"], mi), xv, state=st)
             store_state(st, nst)
+        return xv
+
+    if cache is None:       # one remat unit a superblock
+        superblock = T._maybe_remat(superblock, cfg)
+    for si in range(n_super):
+        x = superblock(x, si)
     return x
 
 
@@ -280,12 +296,23 @@ def forward(cfg: ModelConfig, params, batch, return_hidden=False):
     elif cfg.family == "moe":
         x, aux_total = moe_layers(cfg, params, x, positions)
     elif cfg.family == "hybrid":
-        for kind, p in hybrid_layers(cfg, params):
-            if kind == "rec":
-                x, _ = REC.apply_rglru_block(cfg, p, x)
-            else:
-                x, _ = T.apply_block(cfg, p, x, positions,
-                                     window=cfg.attn_window)
+        layers = hybrid_layers(cfg, params)
+        per = len(cfg.block_pattern)
+        n_super = _hybrid_layout(cfg)[0]
+
+        def run(xv, group):
+            for kind, p in group:
+                if kind == "rec":
+                    xv, _ = REC.apply_rglru_block(cfg, p, xv)
+                else:
+                    xv, _ = T.apply_block(cfg, p, xv, positions,
+                                          window=cfg.attn_window)
+            return xv
+
+        superblock = T._maybe_remat(run, cfg)   # the remainder runs plain
+        for s in range(n_super):
+            x = superblock(x, layers[s * per:(s + 1) * per])
+        x = run(x, layers[n_super * per:])
     elif cfg.family == "ssm":
         x = xlstm_layers(cfg, params, x)
     else:

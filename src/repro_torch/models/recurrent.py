@@ -22,7 +22,9 @@ Numerics kept from the reference, each with a CPU test:
 A given mLSTM state's matrix memory ``C`` (4 MB a head at xlstm-1.3b's
 width) is updated in place and returned as the same tensor, as a decode
 cache's K/V are (the reference donates its cache to the jitted step); the
-other state leaves are returned new.
+other state leaves are returned new. While autograd records (training),
+C is updated out of place instead: earlier products saved it for
+backward. The arithmetic is the same either way (``_in_place``).
 """
 from __future__ import annotations
 
@@ -159,13 +161,40 @@ def mlstm_specs(cfg: ModelConfig, n: int) -> dict:
 MLSTM_CHUNK = 64
 
 
-def _silu(x):
+class _Silu(torch.autograd.Function):
     """``jax.nn.silu`` as XLA computes it: ``x * (1 / (1 + exp(-x)))``,
     each step rounded in x's dtype. ``F.silu`` rounds once; in bf16 the
     two part by an ulp on a quarter of the inputs, and the mLSTM's
     exponential gates carry that far (at ``reduce()``'s init scale, S 64,
-    to 0.79 of max |out| against 0.0012 for this form)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    to 0.79 of max |out| against 0.0012 for this form).
+
+    The backward is ``jax.grad``'s of ``x * sigmoid(x)``: differentiating
+    the expansion would multiply ``exp(-x)`` = inf by 0 below x ~ -88
+    (fp32) and give NaN where JAX's gradient is finite."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * (1 / (1 + torch.exp(-x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * s + (g * x) * s * (1 - s)
+
+
+def _silu(x):
+    return _Silu.apply(x)
+
+
+def _in_place(C, *inputs) -> bool:
+    """Whether the mLSTM may write its matrix memory ``C`` in place: not
+    while autograd records through it or its inputs, since the products
+    of a step save C for backward. Serving (``torch.inference_mode``,
+    ``torch.no_grad``) keeps the in-place write."""
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (C,) + inputs))
 
 
 def _mlstm_chunkwise(q, k, v, i_pre, f_pre, C0, n0, m0, L):
@@ -173,9 +202,10 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, C0, n0, m0, L):
     decay-masked attention inside the chunk plus the carried state.
 
     q,k,v: (B,S,H,dh) (k pre-scaled); i_pre/f_pre: (B,S,H) raw gate logits;
-    C0: (B,H,dh,dh) (updated in place), n0: (B,H,dh), m0: (B,H) fp32.
-    Returns (h (B,S,H,dh) fp32, (C,n,m))."""
+    C0: (B,H,dh,dh) (updated in place unless autograd records),
+    n0: (B,H,dh), m0: (B,H) fp32. Returns (h (B,S,H,dh) fp32, (C,n,m))."""
     b, s, h, dh = q.shape
+    in_place = _in_place(C0, q, k, v, i_pre, f_pre)
     nc = s // L
 
     def r4(t):
@@ -214,8 +244,11 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, C0, n0, m0, L):
         m_next = Ftot + torch.maximum(m, Amax[..., -1])
         decay = torch.exp(Ftot + m - m_next)
         wk = torch.exp(a + (Ftot - m_next)[..., None])    # (b,h,L)
-        C.mul_(decay[..., None, None]).add_(
-            torch.einsum("bht,bhtd,bhte->bhde", wk, kt, vt))
+        upd = torch.einsum("bht,bhtd,bhte->bhde", wk, kt, vt)
+        if in_place:
+            C.mul_(decay[..., None, None]).add_(upd)
+        else:
+            C = C * decay[..., None, None] + upd
         n = decay[..., None] * n + torch.einsum("bht,bhtd->bhd", wk, kt)
         m = m_next
     # (b,h,nc,L,dh) -> (b,s,h,dh)
@@ -224,8 +257,9 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, C0, n0, m0, L):
 
 
 def _mlstm_sequential(q, k, v, i_pre, f_pre, C, n, m):
-    """The reference's step-by-step scan; C (B,H,dh,dh) updated in place.
-    Returns (h (B,S,H,dh) fp32, (C,n,m))."""
+    """The reference's step-by-step scan; C (B,H,dh,dh) updated in place
+    unless autograd records. Returns (h (B,S,H,dh) fp32, (C,n,m))."""
+    in_place = _in_place(C, q, k, v, i_pre, f_pre)
     hs = []
     for t in range(q.shape[1]):
         qt, kt, vt = q[:, t].float(), k[:, t].float(), v[:, t].float()
@@ -234,8 +268,11 @@ def _mlstm_sequential(q, k, v, i_pre, f_pre, C, n, m):
         m_new = torch.maximum(log_f + m, it)
         i_g = torch.exp(it - m_new)
         f_g = torch.exp(log_f + m - m_new)
-        C.mul_(f_g[..., None, None]).addcmul_(
-            (i_g[..., None] * kt)[..., :, None], vt[..., None, :])
+        ik, vr = (i_g[..., None] * kt)[..., :, None], vt[..., None, :]
+        if in_place:
+            C.mul_(f_g[..., None, None]).addcmul_(ik, vr)
+        else:
+            C = torch.addcmul(C * f_g[..., None, None], ik, vr)
         n = f_g[..., None] * n + i_g[..., None] * kt
         num = torch.einsum("bhkv,bhk->bhv", C, qt)
         den = torch.clamp(torch.einsum("bhk,bhk->bh", n, qt).abs(), min=1.0)
@@ -247,7 +284,7 @@ def _mlstm_sequential(q, k, v, i_pre, f_pre, C, n, m):
 def apply_mlstm_block(cfg, p, x, *, state=None):
     """mLSTM with matrix memory. state: {'C': (B,H,dk,dv), 'n': (B,H,dk),
     'm': (B,H)} fp32 and 'conv': (B,K-1,2d); a given C is updated in
-    place. Chunkwise-parallel when S % 64 == 0 and S > 64, else the
+    place unless autograd records. Chunkwise-parallel when S % 64 == 0 and S > 64, else the
     sequential scan."""
     b, s, d = x.shape
     h = cfg.num_heads

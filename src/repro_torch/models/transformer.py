@@ -7,12 +7,28 @@ leading 'layers' axis and run in a Python loop over it (the reference's
 KV caches are written in place: the reference's ``lax.dynamic_update_slice``
 on a donated cache (serve/server.py) is an in-place write under XLA. Its
 start index is clamped as JAX clamps it (``_cache_start``).
+
+Rematerialization (``_maybe_remat``, ``cfg.remat``) wraps one unit of
+layers, the reference's scan body, in ``torch.utils.checkpoint`` while
+autograd records; serving runs the plain function:
+- ``"full"`` (``nothing_saveable``): the unit keeps only its inputs and
+  recomputes everything inside it in the backward pass.
+- ``"dots"`` (``checkpoint_dots_with_no_batch_dims``): the unit saves the
+  outputs of ``aten.mm`` / ``aten.addmm``, the ``x @ w`` products of a
+  weight matrix with the tokens folded into rows, and recomputes the rest:
+  norms, activations, RoPE, and the batched products over heads
+  (``bmm``, the attention scores and the recurrent einsums).
+- ``"none"``: autograd saves what each op needs.
+The arithmetic is the same under all three: a recomputed op gives the
+same bits.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.common import ParamSpec
 from repro_torch.configs.base import ModelConfig
@@ -130,6 +146,36 @@ def apply_block(cfg, p, x, positions, *, kv_cache=None, cache_index=None,
     return x, new_cache
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``'s policy while autograd records (see the
+    module docstring); ``fn`` itself otherwise."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        context_fn = ckpt.noop_context_fn
+    elif cfg.remat == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    else:
+        raise ValueError(f"remat {cfg.remat!r}: full | dots | none")
+
+    @functools.wraps(fn)
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # the models draw no random numbers: no RNG state to replay
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=context_fn)
+    return run
+
+
 def layer_params(stacked: dict, i: int) -> dict:
     """Layer ``i`` of a stacked tree (views, no copy)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
@@ -138,15 +184,20 @@ def layer_params(stacked: dict, i: int) -> dict:
 
 def scan_dense_blocks(cfg, stacked, x, positions, *, kv_cache=None,
                       cache_index=None, window=None):
-    """Run n stacked dense blocks in order.
+    """Run n stacked dense blocks in order, each block one remat unit.
 
     kv_cache here is stacked: {'k','v'}: (n, B, Smax, Hkv, hd), written in
     place. Returns (x, kv_cache_or_None).
     """
     n = stacked["ln1"].shape[0]
+    if kv_cache is None:
+        body = _maybe_remat(lambda xv, p: apply_block(
+            cfg, p, xv, positions, window=window)[0], cfg)
+        for i in range(n):
+            x = body(x, layer_params(stacked, i))
+        return x, None
     for i in range(n):
-        layer_cache = (None if kv_cache is None else
-                       {"k": kv_cache["k"][i], "v": kv_cache["v"][i]})
+        layer_cache = {"k": kv_cache["k"][i], "v": kv_cache["v"][i]}
         x, _ = apply_block(cfg, layer_params(stacked, i), x, positions,
                            kv_cache=layer_cache, cache_index=cache_index,
                            window=window)

@@ -2,8 +2,9 @@
 chip_smoke.py imports JAX or the JAX package, and the port serves on the
 CPU, through an engine, through the registry and the gateway, and through
 a gateway's worker process, builds a dataset, trains, runs a flywheel
-tick, and serves a dense and a moe LM through ``repro_torch.launch.serve``,
-in processes where importing either would fail."""
+tick, serves a dense and a moe LM through ``repro_torch.launch.serve`` and
+trains one through ``repro_torch.launch.train``, in processes where
+importing either would fail."""
 import ast
 import os
 import subprocess
@@ -131,6 +132,11 @@ for arch in ("granite-moe-3b-a800m", "recurrentgemma-2b", "xlstm-1.3b"):
     lm = lm_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--requests", "2", "--max-new", "3"])
     assert [len(r.output) for r in lm] == [3, 3]
+# LM training: the launcher at the smoke size, on the CPU
+from repro_torch.launch import train as lm_train
+hist = lm_train.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
+                      "--steps", "3", "--batch", "2", "--seq", "16"])
+assert hist[-1]["step"] == 3
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("served", [round(r.compliance, 3) for r in done + got + [far]])
