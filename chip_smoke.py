@@ -235,6 +235,21 @@ Phases, one JSON line each on stdout:
      Frees what it allocates. No kernel: the LM training path calls none.
  14. contracts — one tick at width 4 equals the same slots' tick at width 2
      bitwise, and park -> restore -> step equals an uninterrupted step.
+ 15. mesh — a one-rank NCCL process group (FileStore under TMPDIR) and
+     launch.mesh.make_debug_mesh((1, 1)) on the card. granite-moe-3b-a800m
+     at every published width, 4 of its 32 layers: two fp32 steps of a
+     Trainer on the mesh (params, AdamW state and batch as DTensors; the
+     MoE's EP sequence body with its two all_to_alls through NCCL, counted)
+     and two of a Trainer without a mesh from the same seed, each step
+     timed: the losses within 2e-4 (the reference's bar for its sharded
+     step), the largest param difference, whether all is bitwise equal.
+     Then ServingEngine(mesh=) in bf16 twice (prefill through the EP
+     sequence body, decode through the EP decode body's all_gather /
+     psum) against the engine without a mesh: the same tokens. The port's
+     paper Table VI rows: the three
+     placers' congestion_cost on CRONet medium at (8, 38), choose_rules of
+     each architecture at train_4k on 16x16. Destroys the group, frees
+     what it allocates. No kernel: the mesh path calls none.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
 drives its path: serving for cronet_fused and solve_b_fused (the gateway
@@ -2626,8 +2641,8 @@ def blocks_recorded():
     calls = []
 
     def recording(name):
-        def call(cfg, p, x, positions, **kw):
-            out = saved[name](cfg, p, x, positions, **kw)
+        def call(cfg, p, x, positions, *rest, **kw):
+            out = saved[name](cfg, p, x, positions, *rest, **kw)
             calls.append((name, p, x, positions, out))
             return out
         return call
@@ -3836,6 +3851,174 @@ def phase_lm_training(ctx):
         raise AssertionError("; ".join(failures))
 
 
+MESH_ARCH = ("granite-moe-3b-a800m", 4)   # every published width, 4 of 32
+MESH_TRAIN = dict(steps=2, batch=4, seq=256)   # layers: 0.555B weights
+MESH_LOSS_TOL = 2e-4            # mesh vs unsharded step, the reference's bar
+MESH_SERVE = (4, 16, 8)         # requests, prompt tokens, new tokens
+
+
+def phase_mesh(ctx):
+    """The mesh on the card (see the module docstring, phase 15)."""
+    import dataclasses
+    import gc
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import numpy as np
+    from repro_torch.common import materialize, param_count, tree_leaves
+    from repro_torch.configs.all import ASSIGNED
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.configs.cronet import get_cronet_config
+    from repro_torch.core import placement
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import shard_map as SM
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.serve.server import Request, ServingEngine
+    from repro_torch.train.steps import TrainConfig
+    from repro_torch.train.trainer import RunConfig, Trainer
+    dev = ctx["device"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    failures = []
+    out = {"phase": "mesh", "nvidia_smi": ctx["smi"]}
+    store = os.path.join(tempfile.mkdtemp(prefix="mesh_"), "store")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(store, 1))
+    try:
+        mesh = make_debug_mesh((1, 1), device="cuda")
+        out["mesh"] = {"shape": [1, 1], "axes": list(mesh.mesh_dim_names),
+                       "backend": dist.get_backend()}
+        name, layers = MESH_ARCH
+        cfg = dataclasses.replace(get_config(name), num_layers=layers)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        out["config"] = {"arch": name, "num_layers": layers,
+                         "of_layers": get_config(name).num_layers,
+                         "params": param_count(M.param_specs(cfg))}
+
+        # training: one fp32 step on the mesh, one without
+        tc = TrainConfig(optimizer=adamw.AdamWConfig(
+            lr=1e-4, warmup_steps=1, total_steps=10))
+        rc = RunConfig(log_every=1, **MESH_TRAIN)
+
+        def timed_run(trainer):
+            """(params, history, s a step): each step's metrics read on
+            the host (a sync) as it ends."""
+            marks = [time.perf_counter()]
+            params, _, hist = trainer.run(
+                progress=lambda s, row: marks.append(time.perf_counter()))
+            return params, hist, [b - a for a, b in zip(marks, marks[1:])]
+
+        calls0 = dict(SM.CALLS)
+        p_mesh, h_mesh, s_mesh = timed_run(Trainer(cfg32, tc, rc, mesh=mesh))
+        train_calls = {k: SM.CALLS[k] - calls0[k] for k in calls0}
+        p_mesh = {k: SH.full(t).detach() for k, t in tree_leaves(p_mesh)}
+        gc.collect()
+        p_one, h_one, s_one = timed_run(Trainer(cfg32, tc, rc, device=dev))
+        diffs = {k: float((p_mesh[k].float() - t.float()).abs().max())
+                 for k, t in tree_leaves(p_one)}
+        bitwise = all(torch.equal(p_mesh[k], t) for k, t in tree_leaves(p_one))
+        loss_diff = max(abs(a["loss"] - b["loss"]) for a, b in zip(h_mesh, h_one))
+        worst = max(diffs, key=diffs.get)
+        out["train"] = {
+            **MESH_TRAIN, "dtype": "float32",
+            "losses_mesh": [h["loss"] for h in h_mesh],
+            "losses_unsharded": [h["loss"] for h in h_one],
+            "loss_diff": loss_diff, "loss_tol": MESH_LOSS_TOL,
+            "grad_norms_mesh": [h["grad_norm"] for h in h_mesh],
+            "grad_norms_unsharded": [h["grad_norm"] for h in h_one],
+            "max_param_diff": diffs[worst], "max_param_diff_leaf": worst,
+            "bitwise_equal": bitwise, "collectives": train_calls,
+            "s_a_step_mesh": s_mesh, "s_a_step_unsharded": s_one}
+        del p_mesh, p_one
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (np.isfinite(h_mesh[-1]["loss"]) and loss_diff <= MESH_LOSS_TOL):
+            failures.append(f"mesh step losses {out['train']['losses_mesh']}"
+                            f" vs {out['train']['losses_unsharded']} over "
+                            f"{MESH_LOSS_TOL}")
+        if train_calls["all_to_all"] == 0:
+            failures.append("the training step reached no all_to_all")
+
+        # serving: bf16, the EP decode body on the mesh
+        n_req, plen, new = MESH_SERVE
+        params = materialize(M.param_specs(cfg), 0, device=dev)
+        gen = np.random.default_rng(0)
+        prompts = [gen.integers(0, cfg.vocab_size, plen).astype(np.int32)
+                   for _ in range(n_req)]
+        def serve(engine):
+            """(requests done, s): the group's wall, synchronised."""
+            t0 = time.perf_counter()
+            done = engine.run([Request(i, p, max_new=new)
+                               for i, p in enumerate(prompts)])
+            sync()
+            return done, time.perf_counter() - t0
+
+        calls0 = dict(SM.CALLS)
+        engine = ServingEngine(cfg, params, slots=n_req, max_len=64,
+                               mesh=mesh)
+        on_mesh, cold_s = serve(engine)
+        serve_calls = {k: SM.CALLS[k] - calls0[k] for k in calls0}
+        again, warm_s = serve(engine)
+        alone, one_s = serve(ServingEngine(cfg, params, slots=n_req,
+                                           max_len=64, device=dev))
+        same = all(np.array_equal(a.output, b.output) and
+                   np.array_equal(a.output, c.output)
+                   for a, b, c in zip(on_mesh, again, alone))
+        out["serve"] = {"dtype": "bfloat16", "requests": n_req,
+                        "prompt_tokens": plen, "new_tokens": new,
+                        "tokens_equal": same, "collectives": serve_calls,
+                        "tokens_mesh": [r.output.tolist() for r in on_mesh],
+                        "mesh_first_s": cold_s, "mesh_again_s": warm_s,
+                        "unsharded_s": one_s}
+        del engine
+        del params
+        if not same:
+            failures.append("mesh serving tokens differ from unsharded")
+        if serve_calls["all_gather"] == 0:
+            failures.append("serving reached no EP decode all_gather")
+    finally:
+        dist.destroy_process_group()
+
+    # paper Table VI, the port's placement module
+    ccfg = get_cronet_config("medium")
+    nodes, edges = placement.cronet_graph(ccfg)
+    grid = (8, 38)
+    out["table6"] = {
+        "congestion_bytes_x_hops": {
+            "rowmajor": placement.congestion_cost(
+                placement.place_rowmajor(nodes, grid), edges),
+            "random": placement.congestion_cost(
+                placement.place_random(nodes, grid), edges),
+            "congestion_aware": placement.congestion_cost(
+                placement.place_congestion_aware(nodes, edges, grid), edges)},
+        "rules_train_4k_16x16": {}}
+    for arch in ASSIGNED:
+        chosen, _, rep, reps = placement.choose_rules(
+            get_config(arch), SHAPES["train_4k"], {"data": 16, "model": 16})
+        out["table6"]["rules_train_4k_16x16"][arch] = {
+            "chosen": chosen, "cost": rep.cost,
+            "costs": {k: v.cost for k, v in reps.items()}}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev)
+    out["memory_allocated_before"] = before
+    out["memory_allocated_after"] = after
+    out["peak_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    if after > before + LM_FREE_SLACK:
+        failures.append(f"memory_allocated {before} before, {after} after")
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def phase_contracts(ctx):
     import torch
     from repro_torch.common import init_params
@@ -3894,7 +4077,7 @@ def main() -> int:
                   phase_lm_kernels, phase_serving, phase_gateway,
                   phase_workers, phase_flywheel, phase_lm_serving,
                   phase_lm_moe, phase_lm_recurrent, phase_lm_training,
-                  phase_contracts):
+                  phase_contracts, phase_mesh):
         try:
             phase(ctx)
         except Exception:

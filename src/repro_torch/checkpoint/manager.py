@@ -16,6 +16,12 @@ under ``params/trunk/conv1`` and an ``AdamWState``'s step under
 ``opt/.step``. Leaves numpy cannot hold (bfloat16) are upcast to
 float32 on save; ``restore`` casts back to the dtype of the ``like`` tree
 (round to nearest even, as ``jnp.astype`` does).
+
+Sharded trees. A tree with DTensor leaves is saved by every rank of the
+process group together: each leaf is gathered whole and rank 0 writes the
+same files an unsharded save writes. ``restore(..., shardings=)`` places
+each leaf on its ``parallel.sharding.Sharding`` (the elastic path: any
+mesh shape reads any checkpoint).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.common import resolve_device
+from repro_torch.parallel.sharding import is_dtensor
 
 __all__ = ["save", "latest_step", "restore", "prune_old"]
 
@@ -82,8 +89,11 @@ def _map_with_paths(fn: Callable[[str, Any], Any], tree, prefix=()):
 
 def _to_numpy(v) -> np.ndarray:
     """A C-contiguous host copy of a leaf's logical contents; dtypes numpy
-    lacks (bfloat16, float8) become float32, as the reference upcasts."""
+    lacks (bfloat16, float8) become float32, as the reference upcasts. A
+    DTensor is gathered whole (a collective)."""
     if isinstance(v, torch.Tensor):
+        if is_dtensor(v):
+            v = v.full_tensor()
         t = v.detach().cpu()
         try:
             a = t.numpy()
@@ -103,15 +113,35 @@ def _digest(a: np.ndarray) -> str:
 
 def save(ckpt_dir: str, step: int, tree: Any, extras: Optional[Dict] = None):
     """Atomic checkpoint save. tree: nested dicts/lists of tensors, arrays
-    or numbers; extras: JSON-able. Returns the step's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    or numbers; extras: JSON-able. Returns the step's directory. With
+    DTensor leaves every rank calls it; rank 0 writes, the rest wait."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    flat = _flatten_with_paths(tree)
+    if not any(is_dtensor(v) for v in flat.values()):
+        _write(ckpt_dir, final, step,
+               {k: _to_numpy(v) for k, v in flat.items()}, extras)
+        return final
+    import torch.distributed as dist
+
+    writer = dist.get_rank() == 0
+    arrays = {}
+    for k, v in flat.items():          # every rank gathers every leaf
+        a = _to_numpy(v)
+        if writer:
+            arrays[k] = a
+    if writer:
+        _write(ckpt_dir, final, step, arrays, extras)
+    dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, final, step, arrays, extras):
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    arrays = {k: _to_numpy(v) for k, v in _flatten_with_paths(tree).items()}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "step": step,
@@ -132,7 +162,6 @@ def save(ckpt_dir: str, step: int, tree: Any, extras: Optional[Dict] = None):
     with open(latest_tmp, "w") as f:
         f.write(os.path.basename(final))
     os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -147,14 +176,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
-            device="cuda"):
+            device="cuda", shardings: Any = None):
     """Restore into the structure of ``like`` (a tree of tensors, or of
     meta tensors such as ``torch.empty(shape, dtype=..., device="meta")``):
     each leaf comes back as a tensor of the like leaf's dtype on
     ``device`` (the card unless the caller asks for the CPU), except a 0-d
     leaf whose like is a CPU tensor, which stays on the CPU (an
     ``AdamWState.step``: ``adamw`` keeps its step count on the host).
-    NamedTuples come back as their own type. Raises on a key ``like`` has
+    NamedTuples come back as their own type. ``shardings``: a tree of
+    ``Sharding`` leaves under the same keys (None or missing: unsharded);
+    each such leaf comes back as a DTensor on its mesh, the same bits on
+    every mesh shape. Raises on a key ``like`` has
     and the checkpoint lacks, and on any member whose content hash does
     not match (each member is read once, and checked before it is used).
     Returns (tree, extras)."""
@@ -183,10 +215,14 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
         if k not in wanted:
             read(k)
 
+    placed = _flatten_with_paths(shardings) if shardings is not None else {}
+
     def load(key, leaf):
         val = torch.from_numpy(read(key))
         if val.dtype != leaf.dtype:
             val = val.to(leaf.dtype)
+        if placed.get(key) is not None:
+            return placed[key].place(val)
         if leaf.dim() == 0 and leaf.device.type == "cpu":
             return val
         return val.to(dev)

@@ -5,12 +5,16 @@
         [--smoke] [--steps 100] [--batch 8] [--seq 256] [--microbatches 1] \
         [--compress-pod-grads] [--ckpt-dir DIR] [--device cpu]
 
-``--smoke`` selects the reduced configuration. ``--mesh`` takes only
-``none``: sharded training is ROADMAP §A.7.4.
+``--smoke`` selects the reduced configuration. ``--mesh single|multi``
+trains on the production mesh (``launch.mesh.make_production_mesh``: 16x16
+or 2x16x16 ranks, one card each). Each rank runs this command under a
+launcher that sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT`` (``torchrun``); the process group is started from them.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def build(argv=None):
@@ -28,14 +32,10 @@ def build(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default="none",
                     choices=["none", "single", "multi"],
-                    help="only 'none': the production mesh is not ported "
-                         "(ROADMAP §A.7.4)")
+                    help="'single'/'multi' build the production mesh "
+                         "(requires enough ranks)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training is not ported yet "
-            "(ROADMAP §A.7.4); run with --mesh none")
 
     from repro_torch.configs.base import get_config
     from repro_torch.optim import adamw
@@ -45,6 +45,22 @@ def build(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduce()
+    mesh = None
+    if args.mesh != "none":
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_production_mesh
+
+        if not dist.is_initialized():
+            if "WORLD_SIZE" not in os.environ:
+                raise RuntimeError(
+                    f"--mesh {args.mesh} needs a process group: run every "
+                    "rank under a launcher that sets RANK, WORLD_SIZE, "
+                    "MASTER_ADDR and MASTER_PORT (torchrun)")
+            dist.init_process_group(
+                "nccl" if args.device == "cuda" else "gloo")
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=args.device)
     tc = TrainConfig(
         microbatches=args.microbatches,
         compress_pod_grads=args.compress_pod_grads,
@@ -53,7 +69,7 @@ def build(argv=None):
             total_steps=args.steps))
     rc = RunConfig(steps=args.steps, batch=args.batch, seq=args.seq,
                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
-    return Trainer(cfg, tc, rc, device=args.device)
+    return Trainer(cfg, tc, rc, device=args.device, mesh=mesh)
 
 
 def main(argv=None):

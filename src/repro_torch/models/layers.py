@@ -3,8 +3,9 @@
 embeddings, logits and the cross-entropy loss. A port of
 ``repro/models/layers.py``; pure functions of tensors.
 
-The reference's sharding annotations (``constrain``, ``gathered``) are
-no-ops off a mesh and are dropped. ``attention`` is also the plain version
+The reference's sharding annotations (``constrain``, ``gathered``) stand
+at its sites: on DTensors they redistribute, on plain tensors they do
+nothing. ``attention`` is also the plain version
 of the flash-attention kernel (``kernels/ref.py`` re-exports it). Its
 scores are fp32: bf16 operands are widened to fp32 before each product,
 which is what JAX's bf16 contraction with an fp32 accumulator computes (a
@@ -19,6 +20,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.shard_map import batch_local
+from repro_torch.parallel.sharding import constrain, gathered
 
 NEG_INF = -1e30
 
@@ -173,18 +177,33 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def swiglu_mlp(x, w_gate, w_up, w_down):
-    """SwiGLU: silu(x W_g) * (x W_u) W_d."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """SwiGLU: silu(x W_g) * (x W_u) W_d, with TP sharding on d_ff and
+    the FSDP weights gathered at the use site."""
+    w_gate = gathered(w_gate, ("fsdp", "tp"))
+    w_up = gathered(w_up, ("fsdp", "tp"))
+    w_down = gathered(w_down, ("tp_in", "fsdp"))
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = constrain(h, ("batch", "act_q_seq", "act_tp"))
+    return h @ w_down
 
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
     """``jax.nn.gelu`` defaults to the tanh approximation; PyTorch's
     default is the exact erf form."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    h = F.gelu(x @ w_in + b_in, approximate="tanh")
+    h = constrain(h, ("batch", None, "act_tp"))
+    return h @ w_out + b_out
 
 
 def embed(tokens, table):
-    """tokens: (B, S) integers -> (B, S, D)."""
+    """tokens: (B, S) integers -> (B, S, D). On a mesh the lookup (and
+    its backward's scatter-add) runs on each rank's batch rows against the
+    whole table: DTensor has no working strategy for that ``index_put``
+    on a sharded table in every release."""
+    return batch_local(_lookup, (tokens, table), (True, False))
+
+
+def _lookup(tokens, table):
     return table[tokens.long()]
 
 
@@ -192,14 +211,18 @@ def logits(x, unembed_table, real_vocab: Optional[int] = None):
     """x: (B, S, D) @ (D, Vpad) -> (B, S, Vpad); padded entries are set to
     ``NEG_INF`` (-1e30), not -inf, as in the reference."""
     out = x @ unembed_table
+    out = constrain(out, ("batch", None, "embed_vocab"))
     if real_vocab is not None and real_vocab < out.shape[-1]:
-        out[..., real_vocab:] = NEG_INF
+        col = torch.arange(out.shape[-1], device=out.device)
+        out = torch.where(col < real_vocab, out, NEG_INF)
     return out
 
 
 def cross_entropy_loss(lgts, labels, real_vocab: int):
     """Mean next-token CE over valid labels (label == -1 is padding)."""
-    lgts = lgts.float()
+    # the vocab dim is gathered first: DTensor's gather from vocab-sharded
+    # logits (its masked partial) fails on this (B, S, V) layout
+    lgts = constrain(lgts, ("batch", None, None)).float()
     lse = torch.logsumexp(lgts, dim=-1)
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()

@@ -23,6 +23,8 @@ from repro_torch.common import ParamSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _cache_start
+from repro_torch.parallel.shard_map import batch_local, heads_local
+from repro_torch.parallel.sharding import constrain
 
 
 def mla_specs(cfg: ModelConfig, n: int) -> dict:
@@ -82,27 +84,41 @@ def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor,
     ckv, krope = _latents(cfg, p, x, positions)
 
     if kv_cache is not None and s == 1:
-        # ---- absorbed decode ----
-        _write(kv_cache, ckv, krope, cache_index)
-        cckv, ckr = kv_cache["ckv"].float(), kv_cache["krope"].float()
-        # fold W_uk into q in the model dtype: (B,1,H,dn) x (kvr,H,dn)
-        q_lat = torch.einsum("bshd,khd->bshk", q_nope,
-                             p["wuk"].reshape(kvr, h, dn))
-        scores = torch.einsum("bshk,btk->bhst", q_lat.float(), cckv)
-        scores = scores + torch.einsum("bshd,btd->bhst", q_rope.float(), ckr)
-        scores = scores * (dn + dr) ** -0.5
-        valid = torch.arange(cckv.shape[1], device=x.device) <= int(cache_index)
-        scores = torch.where(valid, scores, L.NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        ctx_lat = torch.einsum("bhst,btk->bshk", probs, cckv)
-        o = torch.einsum("bshk,khd->bshd", ctx_lat,
-                         p["wuv"].reshape(kvr, h, dv).float())
-        return o.to(x.dtype).reshape(b, s, h * dv) @ p["wo"], kv_cache
+        # ---- absorbed decode, on each rank's batch rows and heads ----
+        def absorbed(q_nope, q_rope, ckv, krope, c_ckv, c_krope, wuk, wuv):
+            _write({"ckv": c_ckv, "krope": c_krope}, ckv, krope, cache_index)
+            cckv, ckr = c_ckv.float(), c_krope.float()
+            # fold W_uk into q in the model dtype: (B,1,H,dn) x (kvr,H,dn)
+            q_lat = torch.einsum("bshd,khd->bshk", q_nope, wuk)
+            scores = torch.einsum("bshk,btk->bhst", q_lat.float(), cckv)
+            scores = scores + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                                           ckr)
+            scores = scores * (dn + dr) ** -0.5
+            valid = torch.arange(cckv.shape[1],
+                                 device=cckv.device) <= int(cache_index)
+            scores = torch.where(valid, scores, L.NEG_INF)
+            probs = torch.softmax(scores, dim=-1)
+            ctx_lat = torch.einsum("bhst,btk->bshk", probs, cckv)
+            o = torch.einsum("bshk,khd->bshd", ctx_lat, wuv.float())
+            return o.to(q_nope.dtype)
+
+        o = heads_local(absorbed, (q_nope, q_rope, ckv, krope,
+                                   kv_cache["ckv"], kv_cache["krope"],
+                                   p["wuk"].reshape(kvr, h, dn),
+                                   p["wuv"].reshape(kvr, h, dv)),
+                        ("h", "h", "b", "b", "bw", "bw", "w1", "w1"))
+        o = constrain(o.reshape(b, s, h * dv), ("batch", None, "act_tp"))
+        return o @ p["wo"], kv_cache
 
     # ---- materialized prefill / forward ----
     if kv_cache is not None:
-        _write(kv_cache, ckv, krope, cache_index)
-        ckv_full, kr_full = kv_cache["ckv"], kv_cache["krope"]
+        def write(c_ckv, c_krope, ckv, krope):
+            _write({"ckv": c_ckv, "krope": c_krope}, ckv, krope, cache_index)
+            return c_ckv, c_krope
+
+        ckv_full, kr_full = batch_local(
+            write, (kv_cache["ckv"], kv_cache["krope"], ckv, krope),
+            (True,) * 4)
         kv_len = torch.full((b,), int(cache_index) + s, dtype=torch.int32,
                             device=x.device)
     else:
@@ -113,6 +129,8 @@ def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k = torch.cat([k_nope, kr_full[:, :, None, :].expand(b, sk, h, dr)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    o = L.attention(q, k, v, causal=True, q_offset=int(cache_index or 0),
-                    kv_len=kv_len)
-    return o.reshape(b, s, h * dv) @ p["wo"], kv_cache
+    o = heads_local(lambda q, k, v, kv_len: L.attention(
+        q, k, v, causal=True, q_offset=int(cache_index or 0), kv_len=kv_len),
+        (q, k, v, kv_len), ("h", "h", "h", "b"))
+    o = constrain(o.reshape(b, s, h * dv), ("batch", None, "act_tp"))
+    return o @ p["wo"], kv_cache

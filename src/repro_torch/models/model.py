@@ -2,7 +2,7 @@
 
 API (pure functions of (cfg, params, ...)):
   param_specs(cfg)                       -> ParamSpec tree, every family
-  forward(cfg, params, batch)            -> (logits, aux_loss)
+  forward(cfg, params, batch, mesh=None) -> (logits, aux_loss)
   init_cache_shapes(cfg, batch, maxlen)  -> tree of "meta" tensors
   init_cache(cfg, batch, maxlen, device) -> zeroed cache, index 0
 
@@ -28,6 +28,9 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
 from repro_torch.models import transformer as T
+from repro_torch.parallel import shard_map as SM
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.sharding import constrain
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -139,10 +142,12 @@ def embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
         vis = F.gelu(batch["patch_embeds"].to(cfg.torch_dtype) @ pj["w1"]
                      + pj["b1"], approximate="tanh")
         vis = vis @ pj["w2"] + pj["b2"]
-        return torch.cat([vis, txt], dim=1)
-    if cfg.family == "audio":
-        return batch["frames"].to(cfg.torch_dtype) @ params["frontend_proj"]
-    return L.embed(batch["tokens"], params["embed"])
+        x = torch.cat([vis, txt], dim=1)
+    elif cfg.family == "audio":
+        x = batch["frames"].to(cfg.torch_dtype) @ params["frontend_proj"]
+    else:
+        x = L.embed(batch["tokens"], params["embed"])
+    return constrain(x, ("batch", "act_q_seq", None))
 
 
 def positions_for(cfg, x, offset=0):
@@ -165,27 +170,29 @@ def _dense_block(cfg, p, x, positions, *, kv_cache=None, cache_index=None):
     h, _ = _attn_fn(cfg)(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                          positions, kv_cache=kv_cache, cache_index=cache_index)
     x = x + h
-    return x + L.swiglu_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps),
-                            p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                            p["mlp"]["w_down"])
+    x = x + L.swiglu_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                         p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                         p["mlp"]["w_down"])
+    return constrain(x, ("batch", None, None))
 
 
-def _moe_block(cfg, p, x, positions, *, kv_cache=None, cache_index=None):
+def _moe_block(cfg, p, x, positions, mesh=None, *, kv_cache=None,
+               cache_index=None):
     """MLA or GQA, then the routed experts and the shared expert on the
     same normed input -> (x, aux)."""
     h, _ = _attn_fn(cfg)(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                          positions, kv_cache=kv_cache, cache_index=cache_index)
     x = x + h
     xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, aux = MOE.apply_moe(cfg, p["moe"], xn)
+    y, aux = MOE.apply_moe(cfg, p["moe"], xn, mesh)
     if cfg.num_shared_experts:
         sh = p["moe"]["shared"]
         y = y + L.swiglu_mlp(xn, sh["wg"], sh["wu"], sh["wd"])
-    return x + y, aux
+    return constrain(x + y, ("batch", None, None)), aux
 
 
-def moe_layers(cfg: ModelConfig, params, x, positions, *, cache=None,
-               cache_index=None):
+def moe_layers(cfg: ModelConfig, params, x, positions, mesh=None, *,
+               cache=None, cache_index=None):
     """The moe family's layers in order: ``num_dense_layers`` dense blocks,
     then the MoE blocks (the MTP module does not run here, as in the
     reference); without a cache each layer is one remat unit. ``cache``
@@ -203,7 +210,7 @@ def moe_layers(cfg: ModelConfig, params, x, positions, *, cache=None,
                             cache_index=cache_index)
 
     def moe(xv, p, i):
-        return _moe_block(cfg, p, xv, positions,
+        return _moe_block(cfg, p, xv, positions, mesh,
                           kv_cache=layer_cache("m", i),
                           cache_index=cache_index)
 
@@ -286,15 +293,26 @@ def xlstm_layers(cfg: ModelConfig, params, x, *, cache=None):
     return x
 
 
-def forward(cfg: ModelConfig, params, batch, return_hidden=False):
-    """Full-sequence forward -> (logits, aux_loss)."""
+def forward(cfg: ModelConfig, params, batch, mesh=None, return_hidden=False):
+    """Full-sequence forward -> (logits, aux_loss). With a ``mesh`` the
+    params are expected on it (``parallel.sharding.shard_tree``), the
+    batch is sharded over its batch axes, and the logits (or hidden
+    states) come back as DTensors."""
+    if mesh is None:
+        return _forward(cfg, params, batch, None, return_hidden)
+    with SH.replicate_plain():
+        return _forward(cfg, params, SH.place_batch(batch, mesh), mesh,
+                        return_hidden)
+
+
+def _forward(cfg, params, batch, mesh, return_hidden):
     x = embed_inputs(cfg, params, batch)
     positions = positions_for(cfg, x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "audio"):
         x, _ = T.scan_dense_blocks(cfg, params["blocks"], x, positions)
     elif cfg.family == "moe":
-        x, aux_total = moe_layers(cfg, params, x, positions)
+        x, aux_total = moe_layers(cfg, params, x, positions, mesh)
     elif cfg.family == "hybrid":
         layers = hybrid_layers(cfg, params)
         per = len(cfg.block_pattern)
@@ -387,15 +405,38 @@ def init_cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device="cuda"):
+               device="cuda", mesh=None):
     """A zeroed decode cache on ``device`` (the card unless the caller
     asks for the CPU); ``index`` is the int 0 and the hybrid's
-    ``slot_pos`` -1 (no position held)."""
+    ``slot_pos`` -1 (no position held). On a ``mesh`` every leaf is a
+    DTensor sharded on its batch dim (dim 1) over the batch axes, the K/V
+    of the transformer's attention also on their heads over ``model``
+    where ``shard_map.heads_split`` holds (the attention runs on those
+    shards), and ``slot_pos`` is replicated. (The reference's dry-run
+    shards the K/V sequence over ``model`` instead, ``kv_seq``; the MLA
+    latents and the hybrid's rolling window are replicated over it.)"""
     shapes = init_cache_shapes(cfg, batch_size, max_len)
-    device = resolve_device(device)
-    cache = {key: 0 if key == "index" else
-             torch.zeros(m.shape, dtype=m.dtype, device=device)
-             for key, m in shapes.items()}
+    if mesh is None:
+        device = resolve_device(device)
+        cache = {key: 0 if key == "index" else
+                 torch.zeros(m.shape, dtype=m.dtype, device=device)
+                 for key, m in shapes.items()}
+    else:
+        from torch.distributed.tensor import zeros
+
+        heads = SM.heads_split(mesh, cfg.num_heads, cfg.num_kv_heads)
+
+        def placed(key, m):
+            axes = (None,) if key == "slot_pos" else (
+                ("layers", "batch") + (None,) * (m.dim() - 2))
+            if heads and key.split("_")[-1] in ("k", "v") \
+                    and cfg.family != "hybrid":
+                axes = ("layers", "batch", None, "act_tp", None)
+            return zeros(m.shape, dtype=m.dtype, device_mesh=mesh,
+                         placements=SH.logical_placements(axes, m.shape, mesh))
+
+        cache = {key: 0 if key == "index" else placed(key, m)
+                 for key, m in shapes.items()}
     if "slot_pos" in cache:
         cache["slot_pos"].fill_(-1)
     return cache

@@ -25,8 +25,16 @@ cache's K/V are (the reference donates its cache to the jitted step); the
 other state leaves are returned new. While autograd records (training),
 C is updated out of place instead: earlier products saved it for
 backward. The arithmetic is the same either way (``_in_place``).
+
+On a mesh the projections run on DTensors and the convolution and the
+recurrences (the RG-LRU scan, the mLSTM, the sLSTM's step loop) run on
+each rank's batch rows (``parallel.shard_map.batch_local``), on plain
+tensors; the blocks' outputs are constrained to ``batch`` and ``act_tp``
+as in the reference.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +42,8 @@ import torch.nn.functional as F
 from repro_torch.common import ParamSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.shard_map import batch_local
+from repro_torch.parallel.sharding import constrain
 
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin recurrent block)
@@ -113,13 +123,16 @@ def apply_rglru_block(cfg, p, x, *, state=None):
     gate = F.gelu((xn @ p["w_gate_in"]).float(), approximate="tanh")
     rec = xn @ p["w_rec_in"]
     conv_state = state["conv"] if state is not None else None
-    rec, new_conv = _causal_conv1d(rec, p["conv_w"], p["conv_b"], conv_state)
+    rec, new_conv = batch_local(
+        _causal_conv1d, (rec, p["conv_w"], p["conv_b"], conv_state),
+        (True, False, False, True))
     r = torch.sigmoid((rec @ p["w_a"]).float())
     i = torch.sigmoid((rec @ p["w_i"]).float())
     h0 = (state["h"] if state is not None else
           torch.zeros((b, w), dtype=torch.float32, device=x.device))
-    y, h_last = _rglru_core(rec.float(), r, i, p["lam"], h0)
-    y = (y * gate).to(x.dtype)
+    y, h_last = batch_local(_rglru_core, (rec.float(), r, i, p["lam"], h0),
+                            (True, True, True, False, True))
+    y = constrain((y * gate).to(x.dtype), ("batch", None, "act_tp"))
     x = x + y @ p["w_out"]
     x = x + L.swiglu_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps),
                          p["mlp"]["w_gate"], p["mlp"]["w_up"],
@@ -127,7 +140,7 @@ def apply_rglru_block(cfg, p, x, *, state=None):
     new_state = None
     if state is not None:
         new_state = {"h": h_last, "conv": new_conv}
-    return x, new_state
+    return constrain(x, ("batch", None, None)), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -168,24 +181,71 @@ class _Silu(torch.autograd.Function):
     exponential gates carry that far (at ``reduce()``'s init scale, S 64,
     to 0.79 of max |out| against 0.0012 for this form).
 
-    The backward is ``jax.grad``'s of ``x * sigmoid(x)``: differentiating
-    the expansion would multiply ``exp(-x)`` = inf by 0 below x ~ -88
-    (fp32) and give NaN where JAX's gradient is finite."""
+    The backward is ``jax.vjp``'s of ``x * logistic(x)``, step for step:
+    ``g s + (x g) (s (1 - s))`` with ``s`` the forward's rounded logistic
+    (bitwise JAX's in bf16). Differentiating the expansion instead would
+    multiply ``exp(-x)`` = inf by 0 below x ~ -88 (fp32) and give NaN
+    where JAX's gradient is finite."""
 
     @staticmethod
     def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return x * (1 / (1 + torch.exp(-x)))
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        s = torch.sigmoid(x)
-        return g * s + (g * x) * s * (1 - s)
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1 - s))
 
 
 def _silu(x):
     return _Silu.apply(x)
+
+
+def _const(c: float, like) -> float:
+    """A Python constant as JAX uses it against an array of ``like``'s
+    dtype: rounded to that dtype first (a weak-typed scalar). PyTorch
+    multiplies a bf16 tensor by the unrounded constant in fp32."""
+    return float(torch.tensor(c, dtype=like.dtype))
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu`` (the tanh form) as XLA computes it, op by op in x's
+    dtype with its constants rounded to that dtype (``_const``) and
+    ``x ** 3`` as two products; ``F.gelu`` rounds once, and in bf16 parts
+    from the reference on 30% of the sLSTM MLP's outputs at ``reduce()``.
+    The backward is ``jax.vjp``'s, step for step: the product's two
+    cotangents, ``tanh``'s ``(c + c th)`` with ``c = ct (1 - th)``, the
+    constants' products, ``integer_pow``'s ``ct * (3 x^2)``, and the three
+    cotangents of x summed in JAX's order (bitwise JAX's in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x3 = x * x * x
+        th = torch.tanh(_const(math.sqrt(2 / math.pi), x)
+                        * (x + _const(0.044715, x) * x3))
+        cdf = 0.5 * (1.0 + th)
+        ctx.save_for_backward(x, th, cdf)
+        return x * cdf
+
+    @staticmethod
+    def backward(ctx, g):
+        x, th, cdf = ctx.saved_tensors
+        ct_y = g * cdf                           # y = x * cdf
+        c = (0.5 * (x * g)) * (1.0 - th)         # through cdf, 1 + th
+        ct_t = c + c * th                        # tanh
+        ct_s = _const(math.sqrt(2 / math.pi), x) * ct_t
+        ct_x3 = _const(0.044715, x) * ct_s
+        return (ct_y + ct_s) + ct_x3 * (3.0 * (x * x))
+
+
+def _gelu(x):
+    """``_Gelu`` in bf16, where the roundings part; ``F.gelu`` in one
+    launch otherwise."""
+    if x.dtype == torch.bfloat16:
+        return _Gelu.apply(x)
+    return F.gelu(x, approximate="tanh")
 
 
 def _in_place(C, *inputs) -> bool:
@@ -294,12 +354,14 @@ def apply_mlstm_block(cfg, p, x, *, state=None):
     up = xn @ p["w_up"]
     gate = _silu(xn @ p["w_gate"])
     conv_state = state["conv"] if state is not None else None
-    c_out, new_conv = _causal_conv1d(up, p["conv_w"], p["conv_b"], conv_state)
+    c_out, new_conv = batch_local(
+        _causal_conv1d, (up, p["conv_w"], p["conv_b"], conv_state),
+        (True, False, False, True))
     c_act = _silu(c_out)
     ch = c_act.reshape(b, s, h, dh)
     uh = up.reshape(b, s, h, dh)
     q = torch.einsum("bshk,hkj->bshj", ch, p["wq"])
-    k = torch.einsum("bshk,hkj->bshj", ch, p["wk"]) * dh ** -0.5
+    k = torch.einsum("bshk,hkj->bshj", ch, p["wk"]) * _const(dh ** -0.5, ch)
     v = torch.einsum("bshk,hkj->bshj", uh, p["wv"])
     if_gates = (c_act @ p["w_if"]).float().reshape(b, s, h, 2)
     i_pre, f_pre = if_gates[..., 0], if_gates[..., 1]
@@ -311,17 +373,21 @@ def apply_mlstm_block(cfg, p, x, *, state=None):
         n0 = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
         m0 = torch.zeros((b, h), dtype=torch.float32, device=x.device)
 
-    if s % MLSTM_CHUNK == 0 and s > MLSTM_CHUNK:
-        hs, (C, n, m) = _mlstm_chunkwise(q, k, v, i_pre, f_pre, C0, n0, m0,
-                                         MLSTM_CHUNK)
+    chunked = s % MLSTM_CHUNK == 0 and s > MLSTM_CHUNK
+    if chunked:
+        def core(*a):
+            return _mlstm_chunkwise(*a, MLSTM_CHUNK)
     else:
-        hs, (C, n, m) = _mlstm_sequential(q, k, v, i_pre, f_pre, C0, n0, m0)
+        core = _mlstm_sequential
+    hs, (C, n, m) = batch_local(core, (q, k, v, i_pre, f_pre, C0, n0, m0),
+                                (True,) * 8)
     hs = hs.reshape(b, s, inner).to(x.dtype)
     out = (hs * gate) @ p["w_down"]
     new_state = None
     if state is not None:
         new_state = {"C": C, "n": n, "m": m, "conv": new_conv}
-    return x + out, new_state
+    seq = "act_q_seq" if chunked else None
+    return constrain(x + out, ("batch", seq, None)), new_state
 
 
 def slstm_specs(cfg: ModelConfig, n: int) -> dict:
@@ -364,7 +430,26 @@ def apply_slstm_block(cfg, p, x, *, state=None):
         h, c, n, m = (torch.zeros((b, d), dtype=torch.float32,
                                   device=x.device) for _ in range(4))
 
-    r = p["r_zifo"].float()  # (H, dh, 4dh)
+    hs, (h, c, n, m) = batch_local(
+        _slstm_scan, (wx, p["r_zifo"].float(), h, c, n, m),
+        (True, False, True, True, True, True))
+    hs = hs.to(x.dtype)  # (B,S,d)
+    x = x + hs @ p["w_out"]
+    x = x + (_gelu(L.rms_norm(x, p["ln2"], cfg.norm_eps) @ p["mlp_up"])
+             @ p["mlp_down"])
+    new_state = None
+    if state is not None:
+        new_state = {"h": h, "c": c, "n": n, "m": m}
+    return constrain(x, ("batch", None, None)), new_state
+
+
+def _slstm_scan(wx, r, h, c, n, m):
+    """The sLSTM's step loop. wx: (B,S,4d) fp32 input pre-activations;
+    r: (H, dh, 4dh) fp32; h, c, n, m: (B, d) fp32. Returns (h for every
+    step (B,S,d) fp32, (h, c, n, m))."""
+    b, s, d4 = wx.shape
+    nh = r.shape[0]
+    dh = d4 // 4 // nh
     hs = []
     for t in range(s):
         rh = torch.einsum("bhk,hkj->bhj", h.reshape(b, nh, dh), r)
@@ -381,11 +466,4 @@ def apply_slstm_block(cfg, p, x, *, state=None):
         h = o * c / torch.clamp(n.abs(), min=1.0)
         m = m_new
         hs.append(h)
-    hs = torch.stack(hs, dim=1).to(x.dtype)  # (B,S,d)
-    x = x + hs @ p["w_out"]
-    x = x + (F.gelu(L.rms_norm(x, p["ln2"], cfg.norm_eps) @ p["mlp_up"],
-                    approximate="tanh") @ p["mlp_down"])
-    new_state = None
-    if state is not None:
-        new_state = {"h": h, "c": c, "n": n, "m": m}
-    return x, new_state
+    return torch.stack(hs, dim=1), (h, c, n, m)

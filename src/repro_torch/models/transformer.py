@@ -33,6 +33,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.common import ParamSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.shard_map import heads_local
+from repro_torch.parallel.sharding import constrain, gathered
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +105,9 @@ def apply_attn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """
     b, sq, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = x @ gathered(p["wq"], ("fsdp", "tp"))
+    k = x @ gathered(p["wk"], ("fsdp", "tp"))
+    v = x @ gathered(p["wv"], ("fsdp", "tp"))
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -115,21 +117,36 @@ def apply_attn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     v = v.reshape(b, sq, hkv, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    # context-parallel attention (the placement pass's rules for archs
+    # whose head count doesn't divide the model axis): q on seq, K/V whole
+    q = constrain(q, ("batch", "act_q_seq", None, None))
+    k = constrain(k, ("batch", "act_kv_seq", None, None))
+    v = constrain(v, ("batch", "act_kv_seq", None, None))
 
+    # the attention (and the cache write) runs on each rank's batch rows
+    # and, where the model axis divides the head counts, its heads
     if kv_cache is not None:
-        ck, cv = kv_cache["k"], kv_cache["v"]
-        start = _cache_start(cache_index, sq, ck.shape[1])
-        ck[:, start:start + sq] = k
-        cv[:, start:start + sq] = v
-        kv_len = torch.full((b,), int(cache_index) + sq, dtype=torch.int32,
-                            device=x.device)
-        o = L.attention(q, ck, cv, causal=sq > 1, window=window,
-                        q_offset=int(cache_index), kv_len=kv_len)
+        index = int(cache_index)
+        start = _cache_start(index, sq, kv_cache["k"].shape[1])
+
+        def attend(q, k, v, ck, cv):
+            ck[:, start:start + sq] = k
+            cv[:, start:start + sq] = v
+            kv_len = torch.full((q.shape[0],), index + sq, dtype=torch.int32,
+                                device=q.device)
+            return L.attention(q, ck, cv, causal=sq > 1, window=window,
+                               q_offset=index, kv_len=kv_len)
+
+        o = heads_local(attend, (q, k, v, kv_cache["k"], kv_cache["v"]),
+                        ("h", "h", "h", "hw", "hw"))
         new_cache = kv_cache
     else:
-        o = L.attention(q, k, v, causal=cfg.decoder, window=window)
+        o = heads_local(lambda q, k, v: L.attention(
+            q, k, v, causal=cfg.decoder, window=window), (q, k, v),
+            ("h",) * 3)
         new_cache = {"k": k, "v": v} if return_kv else None
-    return o.reshape(b, sq, hq * hd) @ p["wo"], new_cache
+    o = constrain(o.reshape(b, sq, hq * hd), ("batch", "act_q_seq", "act_tp"))
+    return o @ gathered(p["wo"], ("tp_in", "fsdp")), new_cache
 
 
 def apply_block(cfg, p, x, positions, *, kv_cache=None, cache_index=None,
@@ -143,6 +160,9 @@ def apply_block(cfg, p, x, positions, *, kv_cache=None, cache_index=None,
     x = x + L.swiglu_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps),
                          p["mlp"]["w_gate"], p["mlp"]["w_up"],
                          p["mlp"]["w_down"])
+    # sequence parallelism under the context-parallel rules; the default
+    # rules leave act_q_seq whole
+    x = constrain(x, ("batch", "act_q_seq", None))
     return x, new_cache
 
 

@@ -17,6 +17,8 @@ from typing import Any, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.parallel import sharding as SH
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -78,10 +80,9 @@ def _unflatten(like, paths: List[Tuple], values: List):
 
 
 def init_state(cfg: AdamWConfig, params) -> AdamWState:
-    mu = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device), params)
-    nu = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device), params)
+    # zeros_like: a DTensor param gets moments of its own placements
+    mu = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    nu = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     master = (tree_map(lambda p: p.detach().float().clone(), params)
               if cfg.master_fp32 else ())
     return AdamWState(torch.zeros((), dtype=torch.int32), mu, nu, master)
@@ -120,7 +121,7 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
     b2c = 1 - torch.pow(cfg.b2, stepf)
 
     def upd(p, g, mu, nu, master):
-        g = g.float() * scale
+        g = SH.placed_like(g, p).float() * scale
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
         mhat = mu / b1c          # 0-d CPU tensors act as scalars
@@ -128,7 +129,7 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
         base = master if cfg.master_fp32 else p.detach().float()
         new = base - lr * (
             mhat / (torch.sqrt(nhat) + cfg.eps) + cfg.weight_decay * base)
-        return new.to(p.dtype), mu, nu, new
+        return tuple(SH.placed_like(t, p) for t in (new.to(p.dtype), mu, nu, new))
 
     paths = _paths(params)
     flat_master = ([_get(state.master, q) for q in paths]

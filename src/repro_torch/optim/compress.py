@@ -16,6 +16,8 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import placed_like
+
 from repro_torch.common import map_params
 
 
@@ -33,9 +35,10 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def init_error_state(params) -> Any:
-    """fp32 zeros shaped as ``params``, on each leaf's device."""
-    return map_params(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params)
+    """fp32 zeros shaped as ``params``, on each leaf's device (a DTensor
+    leaf's on its placements)."""
+    return map_params(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                      params)
 
 
 def ef_compress_grads(grads, error_state):
@@ -47,7 +50,9 @@ def ef_compress_grads(grads, error_state):
             pairs = {k: walk(g[k], e[k]) for k in g}
             return ({k: v[0] for k, v in pairs.items()},
                     {k: v[1] for k, v in pairs.items()})
-        compensated = g.float() + e
+        # a sharded gradient on its error leaf's placements first: the
+        # scale is the whole leaf's amax either way
+        compensated = placed_like(g, e).float() + e
         deq = dequantize_int8(*quantize_int8(compensated))
         return deq.to(g.dtype), compensated - deq
 

@@ -12,6 +12,11 @@ window-sized K/V (RecurrentGemma's local attention: position p in slot
 p % w, ``slot_pos`` naming the position each slot holds, so decode runs
 past the window by overwriting its oldest slot) and the RG-LRU states;
 ``ssm`` keeps the mLSTM and sLSTM states.
+
+With a ``mesh`` the params are expected on it, the tokens are sharded over
+its batch axes, the cache is ``model.init_cache``'s sharded one, and the
+logits come back as DTensors; every write into the cache and every
+attention over it runs on each rank's batch rows.
 """
 from __future__ import annotations
 
@@ -22,6 +27,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import recurrent as REC
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.shard_map import batch_local
+from repro_torch.parallel.sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -47,36 +55,57 @@ def _rolling_attn_decode(cfg, p, x, cache_k, cache_v, slot_pos, index: int):
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
     slot = index % w
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
-    slot_pos[slot] = index
-    g = hq // hkv
-    qg = q.reshape(b, hkv, g, hd)
-    s = torch.einsum("bhgd,bwhd->bhgw", qg.float(),
-                     cache_k.float()) * hd ** -0.5
-    valid = (slot_pos >= 0) & (slot_pos <= index) \
-        & (slot_pos > index - (cfg.attn_window or 10 ** 9))
-    s = torch.where(valid[None, None, None, :], s, L.NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgw,bwhd->bhgd", pr, cache_v.float())
-    o = o.reshape(b, 1, hq * hd).to(x.dtype)
-    return o @ p["wo"]
+
+    def attend(q, k, v, cache_k, cache_v, slot_pos):
+        bl = q.shape[0]
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
+        slot_pos[slot] = index
+        g = hq // hkv
+        qg = q.reshape(bl, hkv, g, hd)
+        s = torch.einsum("bhgd,bwhd->bhgw", qg.float(),
+                         cache_k.float()) * hd ** -0.5
+        valid = (slot_pos >= 0) & (slot_pos <= index) \
+            & (slot_pos > index - (cfg.attn_window or 10 ** 9))
+        s = torch.where(valid[None, None, None, :], s, L.NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgw,bwhd->bhgd", pr, cache_v.float())
+        return o.reshape(bl, 1, hq * hd).to(q.dtype)
+
+    o = batch_local(attend, (q, k, v, cache_k, cache_v, slot_pos),
+                    (True,) * 5 + (False,))
+    return o.to(x.dtype) @ p["wo"]
 
 
 def _fill_rolling_cache(k, v, width: int):
     """k,v: (B,S,Hkv,hd) rope'd at their absolute positions. Returns
     (cache_k, cache_v, slot_pos) of exactly ``width`` slots holding the
     last min(S, width) positions at slot p % width."""
+    ck, cv = batch_local(lambda k, v: _fill_rolling_kv(k, v, width), (k, v),
+                         (True, True))
+    return ck, cv, _slot_positions(k.shape[1], width, k.device)
+
+
+def _kept(s: int, width: int, device):
+    ps = torch.arange(max(s - width, 0), s, device=device)  # last kept
+    return ps, ps % width
+
+
+def _fill_rolling_kv(k, v, width: int):
     b, s, hkv, hd = k.shape
-    ps = torch.arange(max(s - width, 0), s, device=k.device)  # last kept
-    slots = ps % width
+    ps, slots = _kept(s, width, k.device)
     ck = torch.zeros((b, width, hkv, hd), dtype=k.dtype, device=k.device)
     cv = torch.zeros((b, width, hkv, hd), dtype=v.dtype, device=v.device)
     ck[:, slots] = k[:, ps]
     cv[:, slots] = v[:, ps]
-    slot_pos = torch.full((width,), -1, dtype=torch.int32, device=k.device)
+    return ck, cv
+
+
+def _slot_positions(s: int, width: int, device):
+    ps, slots = _kept(s, width, device)
+    slot_pos = torch.full((width,), -1, dtype=torch.int32, device=device)
     slot_pos[slots] = ps.to(torch.int32)
-    return ck, cv, slot_pos
+    return slot_pos
 
 
 def _hybrid_layers(cfg, params, x, positions, cache, index: int,
@@ -113,10 +142,10 @@ def _hybrid_layers(cfg, params, x, positions, cache, index: int,
 
 
 def _layers(cfg: ModelConfig, params, x, positions, cache, index: int,
-            prefill: bool):
+            prefill: bool, mesh=None):
     """Every layer against ``cache`` (written in place) from ``index``."""
     if cfg.family == "moe":
-        x, _ = M.moe_layers(cfg, params, x, positions, cache=cache,
+        x, _ = M.moe_layers(cfg, params, x, positions, mesh, cache=cache,
                             cache_index=index)
         return x
     if cfg.family == "hybrid":
@@ -133,26 +162,43 @@ def _layers(cfg: ModelConfig, params, x, positions, cache, index: int,
     raise ValueError(cfg.family)
 
 
-def decode_step(cfg: ModelConfig, params, tokens, cache):
+def decode_step(cfg: ModelConfig, params, tokens, cache, mesh=None):
     """tokens: (B, 1) integers -> (logits (B, 1, V), cache with index + 1)."""
+    if mesh is None:
+        return _decode_step(cfg, params, tokens, cache, None)
+    with SH.replicate_plain():
+        tokens = SH.place_batch({"tokens": tokens}, mesh)["tokens"]
+        return _decode_step(cfg, params, tokens, cache, mesh)
+
+
+def _decode_step(cfg, params, tokens, cache, mesh):
     idx = int(cache["index"])
     x = L.embed(tokens, params["embed"])
     pos = torch.full((x.shape[0], 1), idx, dtype=torch.int32, device=x.device)
-    x = _layers(cfg, params, x, pos, cache, idx, prefill=False)
+    x = constrain(x, ("batch", None, None))
+    x = _layers(cfg, params, x, pos, cache, idx, prefill=False, mesh=mesh)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return M.unembed_logits(cfg, params, x), dict(cache, index=idx + 1)
 
 
-def prefill(cfg: ModelConfig, params, batch, max_len: int):
+def prefill(cfg: ModelConfig, params, batch, max_len: int, mesh=None):
     """Run the prompt through the model, returning (last_logits, cache).
 
     max_len is the cache capacity (>= prompt length); decode_step then
     appends from cache['index'] onward.
     """
+    if mesh is None:
+        return _prefill(cfg, params, batch, max_len, None)
+    with SH.replicate_plain():
+        return _prefill(cfg, params, SH.place_batch(batch, mesh), max_len,
+                        mesh)
+
+
+def _prefill(cfg, params, batch, max_len, mesh):
     x = M.embed_inputs(cfg, params, batch)
     b, s = x.shape[:2]
     positions = M.positions_for(cfg, x)
-    cache = M.init_cache(cfg, b, max_len, device=x.device)
-    x = _layers(cfg, params, x, positions, cache, 0, prefill=True)
+    cache = M.init_cache(cfg, b, max_len, device=x.device, mesh=mesh)
+    x = _layers(cfg, params, x, positions, cache, 0, prefill=True, mesh=mesh)
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return M.unembed_logits(cfg, params, x), dict(cache, index=s)

@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.common import map_params, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.parallel import sharding as SH
 from repro_torch.serve import decode as D
 from repro_torch.serve.types import throughput_view
 
@@ -39,28 +41,44 @@ class Request:
 
 class ServingEngine:
     """Greedy decoding over a fixed slot grid on ``device`` (the card
-    unless the caller asks for the CPU); ``params`` move there."""
+    unless the caller asks for the CPU); ``params`` move there. On a
+    ``mesh`` (every rank of its process group runs the same requests) the
+    params are placed on their shardings (``parallel.sharding``) unless
+    they are DTensors already, the slots are sharded over the batch axes,
+    and each rank gathers the logits to pick the same tokens."""
 
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
-                 max_len: int = 128, device="cuda"):
+                 max_len: int = 128, device="cuda", mesh=None):
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is encoder-only")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device_type if mesh is not None else device)
         self.cfg = cfg
-        self.params = map_params(lambda t: t.to(self.device), params)
+        if mesh is None:
+            self.params = map_params(lambda t: t.to(self.device), params)
+        else:
+            self.params = SH.shard_tree(params, SH.spec_tree_to_shardings(
+                M.param_specs(cfg), mesh))
         self.slots, self.max_len = slots, max_len
 
     def _greedy(self, lgts) -> torch.Tensor:
         # argmax takes the first maximum, as jnp.argmax does
-        return torch.argmax(lgts[:, -1:, : self.cfg.vocab_size], dim=-1)
+        return torch.argmax(SH.full(lgts)[:, -1:, : self.cfg.vocab_size],
+                            dim=-1)
 
-    @torch.inference_mode()
     def run(self, requests: List[Request]):
         """Process all requests; returns them with outputs filled.
 
         Each group of up to `slots` requests is prefilled together into
         one cache, then decoded as a batch.
         """
+        # a DTensor's views cannot be taken under inference mode
+        with (torch.no_grad() if self.mesh is not None
+              else torch.inference_mode()):
+            return self._run(requests)
+
+    def _run(self, requests: List[Request]):
         pending = list(requests)
         while pending:
             group = pending[: self.slots]
@@ -75,12 +93,13 @@ class ServingEngine:
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
             t0 = time.perf_counter()
             lgts, cache = D.prefill(self.cfg, self.params, batch,
-                                    max_len=self.max_len)
+                                    max_len=self.max_len, mesh=self.mesh)
             nxt = self._greedy(lgts)
             outs = [nxt]
             steps = max(r.max_new for r in group)
             for _ in range(steps - 1):
-                lgts, cache = D.decode_step(self.cfg, self.params, nxt, cache)
+                lgts, cache = D.decode_step(self.cfg, self.params, nxt, cache,
+                                            mesh=self.mesh)
                 nxt = self._greedy(lgts)
                 outs.append(nxt)
             gen = torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)

@@ -2,10 +2,15 @@
 EF-int8 gradient compression, the MTP auxiliary loss. The counterpart of
 ``repro.train.steps``.
 
-``make_train_step(cfg, tc)`` returns
+``make_train_step(cfg, tc, mesh=None)`` returns
     (params, opt_state, batch[, error_state])
         -> (params, opt_state, metrics[, error_state])
-with the reference's metric keys. Gradients come from
+with the reference's metric keys. On a mesh the params, moments and error
+state are DTensors (placed by the caller, ``parallel.sharding``), each
+microbatch is sharded over the batch axes, and the gradient norm, the
+clip, AdamW and EF-int8 act on the DTensors, reducing over the whole leaf
+as GSPMD does on the global array; the metrics come back as plain
+tensors. Gradients come from
 ``torch.autograd.grad`` with respect to detached aliases of the param
 leaves, so the tree passed in (which may be serving) is never written and
 needs no ``requires_grad``. With one microbatch they keep each param's
@@ -24,6 +29,7 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, compress
+from repro_torch.parallel import sharding as SH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +68,11 @@ def _mtp_loss(cfg: ModelConfig, params, batch, hidden):
     return L.cross_entropy_loss(lgts, labels2, cfg.vocab_size)
 
 
-def loss_fn(cfg: ModelConfig, tc: TrainConfig, params, batch):
+def loss_fn(cfg: ModelConfig, tc: TrainConfig, params, batch, mesh=None):
     """(total loss, {"ce", "aux"[, "mtp"]}): CE plus ``aux_loss_weight``
     times the MoE balance loss, plus ``mtp_weight`` times the MTP loss."""
     want_hidden = bool(cfg.mtp_depth)
-    out, aux = M.forward(cfg, params, batch, return_hidden=want_hidden)
+    out, aux = M.forward(cfg, params, batch, mesh, return_hidden=want_hidden)
     lgts = M.unembed_logits(cfg, params, out) if want_hidden else out
     ce = L.cross_entropy_loss(lgts, batch["labels"], cfg.vocab_size)
     total = ce + tc.aux_loss_weight * aux
@@ -84,7 +90,7 @@ def _split_microbatches(batch, n):
              for k, v in batch.items()} for i in range(n)]
 
 
-def _value_and_grad(cfg, tc, params, batch):
+def _value_and_grad(cfg, tc, params, batch, mesh=None):
     """((loss, metrics), grads): grads in each param's dtype, a new tree
     shaped as ``params``."""
     paths = adamw._paths(params)
@@ -92,7 +98,7 @@ def _value_and_grad(cfg, tc, params, batch):
               for q in paths]
     with torch.enable_grad():
         total, metrics = loss_fn(cfg, tc, adamw._unflatten(
-            params, paths, leaves), batch)
+            params, paths, leaves), batch, mesh)
         # a leaf the family never reads (hubert's token embedding) gets
         # zeros, as jax.grad gives it
         grads = torch.autograd.grad(total, leaves, allow_unused=True,
@@ -101,16 +107,26 @@ def _value_and_grad(cfg, tc, params, batch):
     return (total.detach(), metrics), adamw._unflatten(params, paths, grads)
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     """The train step (see the module docstring)."""
 
     def train_step(params, opt_state, batch, error_state=None):
+        if mesh is None:
+            return _step(params, opt_state, batch, error_state)
+        # microbatches are split before they are sharded: each is spread
+        # over the batch axes
+        with SH.replicate_plain():
+            out = _step(params, opt_state, batch, error_state)
+        metrics = {k: SH.full(v) for k, v in out[2].items()}
+        return out[:2] + (metrics,) + out[3:]
+
+    def _step(params, opt_state, batch, error_state):
         if tc.microbatches > 1:
-            grads = adamw.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = adamw.tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             metrics = None
             for mb in _split_microbatches(batch, tc.microbatches):
-                (lv, m), g = _value_and_grad(cfg, tc, params, mb)
+                (lv, m), g = _value_and_grad(cfg, tc, params, mb, mesh)
                 for acc, gi in zip(adamw.leaves(grads), adamw.leaves(g)):
                     acc.add_(gi)
                 del g
@@ -121,7 +137,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
                 acc.div_(tc.microbatches)
             metrics = {k: v / tc.microbatches for k, v in metrics.items()}
         else:
-            (lv, metrics), grads = _value_and_grad(cfg, tc, params, batch)
+            (lv, metrics), grads = _value_and_grad(cfg, tc, params, batch,
+                                                   mesh)
             metrics = {"loss": lv, **metrics}
 
         new_error = error_state

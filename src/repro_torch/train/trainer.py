@@ -1,7 +1,12 @@
 """Training loop: the step, checkpoint and restart, preemption safety
 (SIGTERM -> a final checkpoint), straggler-tolerant input prefetch and
-metrics logging. The counterpart of ``repro.train.trainer`` on one device
-(the card unless the caller asks for the CPU); a mesh is ROADMAP §A.7.4.
+metrics logging. The counterpart of ``repro.train.trainer``: on one device
+(the card unless the caller asks for the CPU), or on a ``mesh``
+(``launch.mesh``) that every rank of the process group runs the loop on in
+step. With a mesh the params, the AdamW state and the EF-int8 error state
+are DTensors on the params' shardings (``parallel.sharding``), placed at
+init and at restore, so a checkpoint of any mesh shape (or none) resumes
+on any other.
 
 Checkpoints are ``repro_torch.checkpoint.manager``'s, in the reference's
 layout and keys (``{"params", "opt"}`` with the ``AdamWState`` fields as
@@ -22,6 +27,7 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.common import materialize, resolve_device
@@ -29,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import PrefetchingLoader, TokenPipeline
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, compress
+from repro_torch.parallel import sharding as SH
 from repro_torch.train.steps import TrainConfig, make_train_step
 
 
@@ -48,18 +55,23 @@ class RunConfig:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, rc: RunConfig,
-                 device="cuda"):
-        self.cfg, self.tc, self.rc = cfg, tc, rc
-        self.device = resolve_device(device)
+                 device="cuda", mesh=None):
+        self.cfg, self.tc, self.rc, self.mesh = cfg, tc, rc, mesh
+        self.device = resolve_device(
+            mesh.device_type if mesh is not None else device)
         self.specs = M.param_specs(cfg)
+        self.shardings = (None if mesh is None else
+                          SH.spec_tree_to_shardings(self.specs, mesh))
         self._preempted = False
-        self.step_fn = make_train_step(cfg, tc)
+        self.step_fn = make_train_step(cfg, tc, mesh)
 
     # -- state ------------------------------------------------------------
     def init_state(self):
         """Params from the port's ``materialize(specs, rc.seed)``: a torch
         generator's draws, not JAX's for the same seed."""
         params = materialize(self.specs, self.rc.seed, device=self.device)
+        if self.mesh is not None:     # every rank drew the same full tensors
+            params = SH.shard_tree(params, self.shardings)
         opt = adamw.init_state(self.tc.optimizer, params)
         err = (compress.init_error_state(params)
                if self.tc.compress_pod_grads else None)
@@ -70,9 +82,14 @@ class Trainer:
         the given state at step 0 when there is none."""
         if not self.rc.ckpt_dir or ckpt.latest_step(self.rc.ckpt_dir) is None:
             return params, opt, None, 0
+        shardings = None
+        if self.mesh is not None:
+            sh = self.shardings
+            shardings = {"params": sh, "opt": adamw.AdamWState(
+                None, sh, sh, sh if self.tc.optimizer.master_fp32 else ())}
         restored, extras = ckpt.restore(
             self.rc.ckpt_dir, {"params": params, "opt": opt},
-            device=self.device)
+            device=self.device, shardings=shardings)
         return (restored["params"], restored["opt"], extras.get("data_state"),
                 extras.get("step", ckpt.latest_step(self.rc.ckpt_dir)))
 
@@ -132,7 +149,8 @@ class Trainer:
                     ckpt.save(self.rc.ckpt_dir, step,
                               {"params": params, "opt": opt},
                               extras={"step": step, "data_state": next_data})
-                    ckpt.prune_old(self.rc.ckpt_dir, self.rc.keep_ckpts)
+                    if self.mesh is None or dist.get_rank() == 0:
+                        ckpt.prune_old(self.rc.ckpt_dir, self.rc.keep_ckpts)
                 if self._preempted:
                     break
         finally:
