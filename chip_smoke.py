@@ -250,6 +250,19 @@ Phases, one JSON line each on stdout:
      placers' congestion_cost on CRONet medium at (8, 38), choose_rules of
      each architecture at train_4k on 16x16. Destroys the group, frees
      what it allocates. No kernel: the mesh path calls none.
+ 16. dryrun — (a) launch.op_analysis held against the card: one fp32
+     train step of granite-moe-3b-a800m at every published width, 4 of
+     its 32 layers, batch 4 x 256, without a mesh, once on meta tensors
+     under OpAnalysis and MemTracker (nothing allocated) and once real:
+     the analyzer's predicted peak within 10% of
+     torch.cuda.max_memory_allocated (MemTracker's reported beside it),
+     the matmul flops equal to torch.profiler's with_flops count (mm,
+     addmm, bmm, baddbmm), the bytes' bound (bytes / 3.35e12) no larger
+     than the profiled device time; the op count beside the device
+     kernels. (b) python -m repro_torch.launch.dryrun --arch
+     granite-moe-3b-a800m --shape decode_32k in a process of its own
+     (its fake 256-rank group; the card is not used), its JSON reported.
+     No kernel: the dry-run's path calls none.
 Then the card's nvidia-smi line, one `kernels` JSON line (the thirteen
 kernels of the twelve wrappers; each kernel's launches from the phase that
 drives its path: serving for cronet_fused and solve_b_fused (the gateway
@@ -4056,6 +4069,153 @@ def phase_contracts(ctx):
         raise AssertionError("a bitwise contract failed on the card")
 
 
+DRYRUN_ARCH = ("granite-moe-3b-a800m", 4)  # every published width, 4 of 32
+DRYRUN_BATCH = (4, 256)                      # one fp32 train step
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_CELL = ("granite-moe-3b-a800m", "decode_32k")
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def phase_dryrun(ctx):
+    """The dry-run's analyzer held against the card, then one cell of the
+    dry-run in a process of its own (see the module docstring)."""
+    import dataclasses
+    import gc
+    import os
+    import torch
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from repro_torch.common import map_params, materialize
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import TrainConfig, make_train_step
+    dev = ctx["device"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    failures = []
+    name, layers = DRYRUN_ARCH
+    b, s = DRYRUN_BATCH
+    cfg = dataclasses.replace(get_config(name), num_layers=layers,
+                              dtype="float32")
+    specs = M.param_specs(cfg)
+    tc = TrainConfig()
+    step = make_train_step(cfg, tc)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def tokens():
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    # the prediction: the same step on meta tensors, nothing allocated
+    meta = map_params(lambda sp: torch.empty(sp.shape, dtype=sp.dtype,
+                                             device="meta"), specs)
+    mopt = adamw.init_state(tc.optimizer, meta)
+    mbatch = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+              for k in ("tokens", "labels")}
+    held = [t for t in torch.utils._pytree.tree_leaves((meta, mopt, mbatch))
+            if isinstance(t, torch.Tensor)]
+    tracker = MemTracker()
+    tracker.track_external(*held)
+    t0 = time.perf_counter()
+    with tracker, OpAnalysis() as mode:
+        mode.track(*held)
+        step(meta, mopt, mbatch)
+    trace_s = time.perf_counter() - t0
+    costs = mode.result()
+    predicted = costs.peak_bytes
+    tracker_peak = sum(d.get("Total", 0) for d in
+                       tracker.get_tracker_snapshot("peak").values())
+
+    # the card: the same step, real
+    base = torch.cuda.memory_allocated(dev)
+    params = materialize(specs, 0, device=dev)
+    opt = adamw.init_state(tc.optimizer, params)
+    batch = {"tokens": tokens(), "labels": tokens()}
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = step(params, opt, batch)
+    sync()
+    real_peak = torch.cuda.max_memory_allocated(dev) - base
+    loss = float(out[2]["loss"])
+    del out
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True,
+                                with_flops=True) as prof:
+        t0 = time.perf_counter()
+        out = step(params, opt, batch)
+        sync()
+        wall_s = time.perf_counter() - t0
+    del out
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    prof_flops = sum(e.flops for e in prof.key_averages()
+                     if e.key in MATMUL_OPS)
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound_s = costs.hbm_bytes / H100_BYTES_PER_S
+    peak_err = abs(predicted - real_peak) / real_peak
+    out = {"phase": "dryrun", "nvidia_smi": ctx["smi"],
+           "config": {"arch": name, "num_layers": layers,
+                      "of_layers": get_config(name).num_layers,
+                      "dtype": "float32", "batch": b, "seq": s},
+           "loss": loss, "trace_s": trace_s,
+           "peak_bytes_predicted": predicted, "peak_bytes_card": real_peak,
+           "peak_bytes_mem_tracker": tracker_peak,
+           "peak_rel_err": peak_err, "peak_tol": DRYRUN_PEAK_TOL,
+           "matmul_flops_predicted": costs.flops,
+           "matmul_flops_profiler": prof_flops,
+           "bytes_predicted": costs.hbm_bytes,
+           "memory_bound_s": bound_s, "device_s": device_s,
+           "wall_s": wall_s, "ops_predicted": costs.ops,
+           "launches_predicted": costs.launches,
+           "device_kernels": len(kernels)}
+    if not math.isfinite(loss):
+        failures.append(f"the step's loss is {loss}")
+    if peak_err > DRYRUN_PEAK_TOL:
+        failures.append(f"predicted peak {predicted} vs the card's "
+                        f"{real_peak}: {peak_err:.3f} apart")
+    if costs.flops != prof_flops:
+        failures.append(f"matmul flops {costs.flops} vs the profiler's "
+                        f"{prof_flops}")
+    if bound_s > device_s:
+        failures.append(f"the bytes' bound {bound_s} s exceeds the device "
+                        f"time {device_s} s")
+
+    # (b) one cell of the dry-run, in a process of its own (its fake
+    # process group of 256 ranks)
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], env=env, capture_output=True, text=True,
+        timeout=300, cwd=str(ROOT))
+    cell_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        failures.append(f"dryrun {arch} {shape} exited {proc.returncode}: "
+                        f"{proc.stderr[-1500:]}")
+    else:
+        cell = json.loads(proc.stdout[proc.stdout.index("{"):])
+        out["cell"] = {"wall_s": cell_s, **{k: cell[k] for k in (
+            "arch", "shape", "mesh", "chips", "device", "trace_s",
+            "memory_analysis", "flops_per_device", "bytes_per_device",
+            "wire_bytes_per_device", "useful_flops_ratio", "roofline",
+            "cache_bytes_per_device")}}
+        out["cell"]["collective_counts"] = cell["collectives"]["counts"]
+        if cell["roofline"]["dominant"] not in ("compute", "memory",
+                                                "collective"):
+            failures.append("the dry-run cell has no dominant term")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -4077,7 +4237,7 @@ def main() -> int:
                   phase_lm_kernels, phase_serving, phase_gateway,
                   phase_workers, phase_flywheel, phase_lm_serving,
                   phase_lm_moe, phase_lm_recurrent, phase_lm_training,
-                  phase_contracts, phase_mesh):
+                  phase_contracts, phase_mesh, phase_dryrun):
         try:
             phase(ctx)
         except Exception:

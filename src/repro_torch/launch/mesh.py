@@ -35,7 +35,7 @@ def _make(shape, axes, device):
         raise RuntimeError(f"a {shape} mesh needs {n} ranks; the process "
                            f"group has {dist.get_world_size()}")
     dev = _device_type(device)
-    if dev == "cuda":
+    if dev == "cuda" and torch.cuda.is_available():
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(dev, tuple(shape), mesh_dim_names=tuple(axes))
 

@@ -21,8 +21,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import shard_map as SM
 from repro_torch.parallel.shard_map import batch_local
-from repro_torch.parallel.sharding import constrain, gathered
+from repro_torch.parallel.sharding import (constrain, gathered, is_dtensor,
+                                           mesh_axes)
 
 NEG_INF = -1e30
 
@@ -171,6 +173,33 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, sq, hq, o.shape[-1])
 
 
+def seq_attention(seq, q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None, q_offset=0,
+                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``attention`` of q against a cache share: ``seq`` is the rank's
+    ``shard_map.SeqShard`` (k, v hold positions ``seq.offset`` on). On a
+    split cache each rank takes its keys' partial softmax and
+    ``seq.combine`` sums them over model (flash-decode); else this is
+    ``attention`` itself."""
+    if not seq.split:
+        return attention(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset, kv_len=kv_len)
+    b, sq, hq, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(d))
+    kpos = seq.offset + torch.arange(k.shape[1], device=q.device)
+    mask = _mask(sq, kpos, causal=causal, window=window, q_offset=q_offset,
+                 kv_len=kv_len, device=q.device)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+    o = seq.combine(m, p.sum(dim=-1), o)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP / embeddings
 # ---------------------------------------------------------------------------
@@ -209,8 +238,12 @@ def _lookup(tokens, table):
 
 def logits(x, unembed_table, real_vocab: Optional[int] = None):
     """x: (B, S, D) @ (D, Vpad) -> (B, S, Vpad); padded entries are set to
-    ``NEG_INF`` (-1e30), not -inf, as in the reference."""
-    out = x @ unembed_table
+    ``NEG_INF`` (-1e30), not -inf, as in the reference. On a mesh the
+    table's FSDP dim is gathered first, as at every other weight's use:
+    left to DTensor, the product of batch-sharded rows with a table
+    sharded over the same axis gathers the rows instead (every rank's
+    logits, 1.3 TB a device at recurrentgemma-2b's train_4k)."""
+    out = x @ gathered(unembed_table, ("embed_d", "embed_vocab"))
     out = constrain(out, ("batch", None, "embed_vocab"))
     if real_vocab is not None and real_vocab < out.shape[-1]:
         col = torch.arange(out.shape[-1], device=out.device)
@@ -219,7 +252,17 @@ def logits(x, unembed_table, real_vocab: Optional[int] = None):
 
 
 def cross_entropy_loss(lgts, labels, real_vocab: int):
-    """Mean next-token CE over valid labels (label == -1 is padding)."""
+    """Mean next-token CE over valid labels (label == -1 is padding). On a
+    mesh whose model axis shards the vocab, each rank reduces its own
+    share of it (``_vocab_parallel_ce``)."""
+    if is_dtensor(lgts):
+        n = mesh_axes(lgts.device_mesh).get("model", 1)
+        if n > 1 and lgts.shape[-1] % n == 0:
+            return _vocab_parallel_ce(lgts, labels)
+    return _gathered_ce(lgts, labels)
+
+
+def _gathered_ce(lgts, labels):
     # the vocab dim is gathered first: DTensor's gather from vocab-sharded
     # logits (its masked partial) fails on this (B, S, V) layout
     lgts = constrain(lgts, ("batch", None, None)).float()
@@ -229,3 +272,43 @@ def cross_entropy_loss(lgts, labels, real_vocab: int):
     picked = torch.gather(lgts, -1, safe[..., None])[..., 0]
     nll = (lse - picked) * valid
     return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def _vocab_parallel_ce(lgts, labels):
+    """``cross_entropy_loss`` on each rank's rows and share of the vocab:
+    the log-sum-exp from one ``pmax`` of the rows' maxima (a constant for
+    the gradient) and one ``psum`` of the shifted sums over model, the
+    label's logit picked on the rank that holds it and summed over model,
+    the sums over the batch axes. Gathering the vocab instead holds every
+    rank's full-vocab logits in fp32: 67 GB a copy at recurrentgemma-2b's
+    train_4k on 16x16."""
+    mesh = lgts.device_mesh
+    bspec = SM.batch_spec(mesh, lgts.shape)
+    rows = bspec[0] if bspec else None
+    batch_axes = () if rows is None else (
+        rows if isinstance(rows, tuple) else (rows,))
+
+    def body(axes, lg, lab):
+        lg = lg.float()
+        width = lg.shape[-1]
+        v0 = axes.index("model") * width
+        m = SM.pmax(lg.detach().amax(dim=-1), axes, "model")
+        lse = m + torch.log(SM.psum(torch.exp(lg - m[..., None]).sum(-1),
+                                    axes, "model"))
+        mine = (lab >= v0) & (lab < v0 + width)
+        idx = torch.where(mine, lab - v0, 0).long()
+        picked = SM.psum(torch.where(
+            mine, torch.gather(lg, -1, idx[..., None])[..., 0], 0.0),
+            axes, "model")
+        valid = lab >= 0
+        nll = ((lse - picked) * valid).sum()
+        count = valid.sum().to(nll.dtype)
+        if batch_axes:
+            nll = SM.psum(nll, axes, batch_axes)
+            count = SM.psum(count, axes, batch_axes)
+        return nll, count
+
+    nll, count = SM.shard_map(body, mesh, ((rows, None, "model"),
+                                           (rows, None)), ((), ()))(
+        lgts, labels)
+    return nll / torch.clamp(count, min=1)

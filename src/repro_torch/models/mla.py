@@ -23,8 +23,8 @@ from repro_torch.common import ParamSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _cache_start
-from repro_torch.parallel.shard_map import batch_local, heads_local
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.shard_map import SeqShard, heads_local, seq_local
+from repro_torch.parallel.sharding import constrain, is_dtensor, split_heads
 
 
 def mla_specs(cfg: ModelConfig, n: int) -> dict:
@@ -50,7 +50,7 @@ def _project_q(cfg, p, x, positions):
     h = cfg.num_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     cq = L.rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wuq"]).reshape(b, s, h, dn + dr)
+    q = split_heads(cq @ p["wuq"], h, dn + dr, "act_q_seq", h)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -64,11 +64,11 @@ def _latents(cfg, p, x, positions):
     return ckv, krope
 
 
-def _write(cache: dict, ckv, krope, cache_index: int):
-    s = ckv.shape[1]
-    start = _cache_start(cache_index, s, cache["ckv"].shape[1])
-    cache["ckv"][:, start:start + s] = ckv
-    cache["krope"][:, start:start + s] = krope
+def _write(seq, c_ckv, c_krope, ckv, krope, start: int):
+    """The new latents into the rank's share of the cache, in place, from
+    position ``start`` (``_cache_start`` of the whole cache)."""
+    seq.write(c_ckv, ckv, start)
+    seq.write(c_krope, krope, start)
 
 
 def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -82,50 +82,65 @@ def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     q_nope, q_rope = _project_q(cfg, p, x, positions)
     ckv, krope = _latents(cfg, p, x, positions)
+    if kv_cache is not None:
+        start = _cache_start(cache_index, s, kv_cache["ckv"].shape[1])
 
     if kv_cache is not None and s == 1:
-        # ---- absorbed decode, on each rank's batch rows and heads ----
-        def absorbed(q_nope, q_rope, ckv, krope, c_ckv, c_krope, wuk, wuv):
-            _write({"ckv": c_ckv, "krope": c_krope}, ckv, krope, cache_index)
+        # ---- absorbed decode, on each rank's batch rows and its share of
+        # the cache's positions (every head; flash-decode on a mesh) ----
+        def absorbed(seq, q_nope, q_rope, ckv, krope, c_ckv, c_krope, wuk,
+                     wuv):
+            _write(seq, c_ckv, c_krope, ckv, krope, start)
             cckv, ckr = c_ckv.float(), c_krope.float()
             # fold W_uk into q in the model dtype: (B,1,H,dn) x (kvr,H,dn)
-            q_lat = torch.einsum("bshd,khd->bshk", q_nope, wuk)
+            q_lat = torch.einsum("bshd,khd->bshk", q_nope,
+                                 wuk.reshape(kvr, h, dn))
             scores = torch.einsum("bshk,btk->bhst", q_lat.float(), cckv)
             scores = scores + torch.einsum("bshd,btd->bhst", q_rope.float(),
                                            ckr)
             scores = scores * (dn + dr) ** -0.5
-            valid = torch.arange(cckv.shape[1],
-                                 device=cckv.device) <= int(cache_index)
+            valid = seq.offset + torch.arange(
+                cckv.shape[1], device=cckv.device) <= int(cache_index)
             scores = torch.where(valid, scores, L.NEG_INF)
-            probs = torch.softmax(scores, dim=-1)
-            ctx_lat = torch.einsum("bhst,btk->bshk", probs, cckv)
-            o = torch.einsum("bshk,khd->bshd", ctx_lat, wuv.float())
+            if seq.split:
+                m = scores.amax(dim=-1)
+                pr = torch.exp(scores - m[..., None])
+                ctx_lat = seq.combine(
+                    m.transpose(1, 2), pr.sum(dim=-1).transpose(1, 2),
+                    torch.einsum("bhst,btk->bshk", pr, cckv))
+            else:
+                probs = torch.softmax(scores, dim=-1)
+                ctx_lat = torch.einsum("bhst,btk->bshk", probs, cckv)
+            o = torch.einsum("bshk,khd->bshd", ctx_lat,
+                             wuv.reshape(kvr, h, dv).float())
             return o.to(q_nope.dtype)
 
-        o = heads_local(absorbed, (q_nope, q_rope, ckv, krope,
-                                   kv_cache["ckv"], kv_cache["krope"],
-                                   p["wuk"].reshape(kvr, h, dn),
-                                   p["wuv"].reshape(kvr, h, dv)),
-                        ("h", "h", "b", "b", "bw", "bw", "w1", "w1"))
+        o = seq_local(absorbed, (q_nope, q_rope, ckv, krope,
+                                 kv_cache["ckv"], kv_cache["krope"],
+                                 p["wuk"], p["wuv"]),
+                      ("b", "b", "b", "b", "sw", "sw", None, None))
         o = constrain(o.reshape(b, s, h * dv), ("batch", None, "act_tp"))
         return o @ p["wo"], kv_cache
 
     # ---- materialized prefill / forward ----
-    if kv_cache is not None:
-        def write(c_ckv, c_krope, ckv, krope):
-            _write({"ckv": c_ckv, "krope": c_krope}, ckv, krope, cache_index)
-            return c_ckv, c_krope
-
-        ckv_full, kr_full = batch_local(
-            write, (kv_cache["ckv"], kv_cache["krope"], ckv, krope),
-            (True,) * 4)
+    ckv_full, kr_full, kv_len = ckv, krope, None
+    if kv_cache is not None and is_dtensor(kv_cache["ckv"]):
+        # a prefill on a mesh: the prompt's own latents, written into the
+        # cache's layout (the mesh's prefill starts at 0)
+        if int(cache_index):
+            raise ValueError("a prefill on a mesh starts at index 0")
+        seq_local(lambda seq, *a: _write(seq, *a, start),
+                  (kv_cache["ckv"], kv_cache["krope"], ckv, krope),
+                  ("sw", "sw", "b", "b"))
+    elif kv_cache is not None:
+        _write(SeqShard(), kv_cache["ckv"], kv_cache["krope"], ckv, krope,
+               start)
+        ckv_full, kr_full = kv_cache["ckv"], kv_cache["krope"]
         kv_len = torch.full((b,), int(cache_index) + s, dtype=torch.int32,
                             device=x.device)
-    else:
-        ckv_full, kr_full, kv_len = ckv, krope, None
     sk = ckv_full.shape[1]
-    k_nope = (ckv_full @ p["wuk"]).reshape(b, sk, h, dn)
-    v = (ckv_full @ p["wuv"]).reshape(b, sk, h, dv)
+    k_nope = split_heads(ckv_full @ p["wuk"], h, dn, "act_kv_seq", h)
+    v = split_heads(ckv_full @ p["wuv"], h, dv, "act_kv_seq", h)
     k = torch.cat([k_nope, kr_full[:, :, None, :].expand(b, sk, h, dr)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)

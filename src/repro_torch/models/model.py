@@ -28,7 +28,6 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
 from repro_torch.models import transformer as T
-from repro_torch.parallel import shard_map as SM
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.sharding import constrain
 
@@ -356,10 +355,18 @@ def init_cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int):
     allocated), with the reference's dtypes: K/V, latents and conv states
     in the configuration's dtype, recurrent states fp32, ``index`` and the
     hybrid's ``slot_pos`` int32."""
+    return {key: torch.empty(shape, dtype=dtype, device="meta")
+            for key, (shape, dtype) in cache_layout(
+                cfg, batch_size, max_len).items()}
+
+
+def cache_layout(cfg: ModelConfig, batch_size: int, max_len: int):
+    """``{key: (shape, dtype)}`` of the decode cache
+    (``init_cache_shapes`` without the tensors)."""
     f32 = torch.float32
 
     def meta(shape, dtype=cfg.torch_dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
+        return tuple(shape), dtype
 
     cache: Dict[str, Any] = {"index": meta((), torch.int32)}
     if cfg.family in ("dense", "vlm"):
@@ -404,39 +411,83 @@ def init_cache_shapes(cfg: ModelConfig, batch_size: int, max_len: int):
     return cache
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    """Logical sharding axes of each cache entry (the reference's
+    ``cache_logical_axes``): the K/V and MLA latents' sequence on
+    ``kv_seq`` (over ``model``), the hybrid's rolling window on the batch
+    only, the recurrent states' width on ``act_tp``."""
+    ax: Dict[str, tuple] = {"index": ()}
+    if cfg.family in ("dense", "vlm"):
+        ax["k"] = ax["v"] = ("layers", "batch", "kv_seq", None, None)
+    elif cfg.family == "moe":
+        for key in ("d_ckv", "m_ckv", "d_krope", "m_krope"):
+            ax[key] = ("layers", "batch", "kv_seq", None)
+        for key in ("d_k", "d_v", "m_k", "m_v"):
+            ax[key] = ("layers", "batch", "kv_seq", None, None)
+    elif cfg.family == "hybrid":
+        ax["k"] = ax["v"] = ("layers", "batch", None, None, None)
+        ax["slot_pos"] = (None,)
+        ax["lru_h"] = ("layers", "batch", "act_tp")
+        ax["conv"] = ("layers", "batch", None, "act_tp")
+    elif cfg.family == "ssm":
+        ax["m_C"] = ("layers", "batch", "act_tp", None, None)
+        ax["m_n"] = ("layers", "batch", "act_tp", None)
+        ax["m_m"] = ("layers", "batch", "act_tp")
+        ax["m_conv"] = ("layers", "batch", None, None)
+        for key in ("s_h", "s_c", "s_n", "s_m"):
+            ax[key] = ("layers", "batch", None)
+    return ax
+
+
+#: cache leaves placed by ``cache_logical_axes`` on a mesh (the K/V and
+#: MLA latents); the recurrent states keep the batch-only layout
+SEQ_SHARDED = ("k", "v", "ckv", "krope")
+
+
+def cache_placements(cfg: ModelConfig, key: str, shape, mesh) -> tuple:
+    """Placements of cache leaf ``key`` on ``mesh``: the transformer's K/V
+    (not the hybrid's window) and the MLA latents by
+    ``cache_logical_axes``, sequence over ``model`` where it divides;
+    every other leaf on its batch dim (dim 1) only; ``slot_pos``
+    replicated."""
+    if key == "slot_pos":
+        axes = (None,)
+    elif key.split("_")[-1] in SEQ_SHARDED and cfg.family != "hybrid":
+        axes = cache_logical_axes(cfg)[key]
+    else:
+        axes = ("layers", "batch") + (None,) * (len(shape) - 2)
+    return SH.logical_placements(axes, shape, mesh)
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device="cuda", mesh=None):
     """A zeroed decode cache on ``device`` (the card unless the caller
     asks for the CPU); ``index`` is the int 0 and the hybrid's
     ``slot_pos`` -1 (no position held). On a ``mesh`` every leaf is a
-    DTensor sharded on its batch dim (dim 1) over the batch axes, the K/V
-    of the transformer's attention also on their heads over ``model``
-    where ``shard_map.heads_split`` holds (the attention runs on those
-    shards), and ``slot_pos`` is replicated. (The reference's dry-run
-    shards the K/V sequence over ``model`` instead, ``kv_seq``; the MLA
-    latents and the hybrid's rolling window are replicated over it.)"""
-    shapes = init_cache_shapes(cfg, batch_size, max_len)
+    DTensor placed by ``cache_placements``: the K/V and MLA latents with
+    their sequence over ``model`` (the decode attention runs on each
+    rank's share of it, ``shard_map.seq_local``), the rest on the batch.
+    On a "meta" ``device`` nothing is allocated (the dry-run)."""
+    layout = cache_layout(cfg, batch_size, max_len)
     if mesh is None:
         device = resolve_device(device)
         cache = {key: 0 if key == "index" else
-                 torch.zeros(m.shape, dtype=m.dtype, device=device)
-                 for key, m in shapes.items()}
+                 torch.zeros(shape, dtype=dtype, device=device)
+                 for key, (shape, dtype) in layout.items()}
     else:
         from torch.distributed.tensor import zeros
 
-        heads = SM.heads_split(mesh, cfg.num_heads, cfg.num_kv_heads)
+        meta = torch.device(device).type == "meta"
 
-        def placed(key, m):
-            axes = (None,) if key == "slot_pos" else (
-                ("layers", "batch") + (None,) * (m.dim() - 2))
-            if heads and key.split("_")[-1] in ("k", "v") \
-                    and cfg.family != "hybrid":
-                axes = ("layers", "batch", None, "act_tp", None)
-            return zeros(m.shape, dtype=m.dtype, device_mesh=mesh,
-                         placements=SH.logical_placements(axes, m.shape, mesh))
+        def placed(key, shape, dtype):
+            pls = cache_placements(cfg, key, shape, mesh)
+            if meta:
+                return SH.meta_dtensor(shape, dtype, mesh, pls)
+            return zeros(shape, dtype=dtype, device_mesh=mesh,
+                         placements=pls)
 
-        cache = {key: 0 if key == "index" else placed(key, m)
-                 for key, m in shapes.items()}
+        cache = {key: 0 if key == "index" else placed(key, *sd)
+                 for key, sd in layout.items()}
     if "slot_pos" in cache:
         cache["slot_pos"].fill_(-1)
     return cache

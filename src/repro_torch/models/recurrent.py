@@ -43,7 +43,7 @@ from repro_torch.common import ParamSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.parallel.shard_map import batch_local
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, split_heads
 
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin recurrent block)
@@ -358,8 +358,8 @@ def apply_mlstm_block(cfg, p, x, *, state=None):
         _causal_conv1d, (up, p["conv_w"], p["conv_b"], conv_state),
         (True, False, False, True))
     c_act = _silu(c_out)
-    ch = c_act.reshape(b, s, h, dh)
-    uh = up.reshape(b, s, h, dh)
+    ch = split_heads(c_act, h, dh, None, h)
+    uh = split_heads(up, h, dh, None, h)
     q = torch.einsum("bshk,hkj->bshj", ch, p["wq"])
     k = torch.einsum("bshk,hkj->bshj", ch, p["wk"]) * _const(dh ** -0.5, ch)
     v = torch.einsum("bshk,hkj->bshj", uh, p["wv"])
@@ -374,14 +374,18 @@ def apply_mlstm_block(cfg, p, x, *, state=None):
         m0 = torch.zeros((b, h), dtype=torch.float32, device=x.device)
 
     chunked = s % MLSTM_CHUNK == 0 and s > MLSTM_CHUNK
-    if chunked:
-        def core(*a):
-            return _mlstm_chunkwise(*a, MLSTM_CHUNK)
-    else:
-        core = _mlstm_sequential
+
+    def core(*a):
+        hs, st = (_mlstm_chunkwise(*a, MLSTM_CHUNK) if chunked
+                  else _mlstm_sequential(*a))
+        # the heads merge on each rank's rows: on a mesh the gradient
+        # comes back sharded over model, which DTensor cannot split
+        # into heads the model axis does not divide
+        return hs.reshape(hs.shape[0], s, inner), st
+
     hs, (C, n, m) = batch_local(core, (q, k, v, i_pre, f_pre, C0, n0, m0),
                                 (True,) * 8)
-    hs = hs.reshape(b, s, inner).to(x.dtype)
+    hs = hs.to(x.dtype)
     out = (hs * gate) @ p["w_down"]
     new_state = None
     if state is not None:

@@ -33,8 +33,9 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.common import ParamSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.parallel.shard_map import heads_local
-from repro_torch.parallel.sharding import constrain, gathered
+from repro_torch.parallel.shard_map import heads_local, seq_local
+from repro_torch.parallel.sharding import (constrain, gathered, is_dtensor,
+                                           split_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -112,9 +113,9 @@ def apply_attn(cfg: ModelConfig, p: dict, x: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, sq, hq, hd)
-    k = k.reshape(b, sq, hkv, hd)
-    v = v.reshape(b, sq, hkv, hd)
+    q = split_heads(q, hq, hd, "act_q_seq", hq, hkv)
+    k = split_heads(k, hkv, hd, "act_kv_seq", hq, hkv)
+    v = split_heads(v, hkv, hd, "act_kv_seq", hq, hkv)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     # context-parallel attention (the placement pass's rules for archs
@@ -123,22 +124,35 @@ def apply_attn(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k = constrain(k, ("batch", "act_kv_seq", None, None))
     v = constrain(v, ("batch", "act_kv_seq", None, None))
 
-    # the attention (and the cache write) runs on each rank's batch rows
-    # and, where the model axis divides the head counts, its heads
+    # the attention runs on each rank's batch rows and, where the model
+    # axis divides the head counts, its heads; against a cache, on each
+    # rank's share of the cache's positions (all heads, flash-decode)
     if kv_cache is not None:
         index = int(cache_index)
         start = _cache_start(index, sq, kv_cache["k"].shape[1])
+        if sq > 1 and is_dtensor(kv_cache["k"]):
+            # a prefill on a mesh: the prompt's own K/V, written into
+            # the cache's layout (the mesh's prefill starts at 0)
+            if index:
+                raise ValueError("a prefill on a mesh starts at index 0")
+            o = heads_local(lambda q, k, v: L.attention(
+                q, k, v, causal=True, window=window), (q, k, v), ("h",) * 3)
+            seq_local(lambda seq, k, v, ck, cv: (seq.write(ck, k, start),
+                                                 seq.write(cv, v, start)),
+                      (k, v, kv_cache["k"], kv_cache["v"]),
+                      ("b", "b", "sw", "sw"))
+        else:
+            def attend(seq, q, k, v, ck, cv):
+                seq.write(ck, k, start)
+                seq.write(cv, v, start)
+                kv_len = torch.full((q.shape[0],), index + sq,
+                                    dtype=torch.int32, device=q.device)
+                return L.seq_attention(seq, q, ck, cv, causal=sq > 1,
+                                       window=window, q_offset=index,
+                                       kv_len=kv_len)
 
-        def attend(q, k, v, ck, cv):
-            ck[:, start:start + sq] = k
-            cv[:, start:start + sq] = v
-            kv_len = torch.full((q.shape[0],), index + sq, dtype=torch.int32,
-                                device=q.device)
-            return L.attention(q, ck, cv, causal=sq > 1, window=window,
-                               q_offset=index, kv_len=kv_len)
-
-        o = heads_local(attend, (q, k, v, kv_cache["k"], kv_cache["v"]),
-                        ("h", "h", "h", "hw", "hw"))
+            o = seq_local(attend, (q, k, v, kv_cache["k"], kv_cache["v"]),
+                          ("b", "b", "b", "sw", "sw"))
         new_cache = kv_cache
     else:
         o = heads_local(lambda q, k, v: L.attention(

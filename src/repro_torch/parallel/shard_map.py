@@ -23,7 +23,9 @@ arguments flagged ``batched`` are sharded on dim 0 over the batch axes
 (replicated over the rest), the others (weights) are replicated, and
 ``fn`` runs on each rank's rows, on plain tensors. ``heads_local`` is the
 attention's: each rank's rows and, where the model axis divides the head
-counts, its share of the heads.
+counts, its share of the heads. ``seq_local`` is decode's: each rank's
+rows and its share of a cache's positions, the partial softmaxes summed
+over model.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ class Axes:
 
 #: collectives issued by bodies in this process, by kind (forward calls;
 #: a one-rank axis still goes through its process group)
-CALLS = {"psum": 0, "all_gather": 0, "all_to_all": 0}
+CALLS = {"psum": 0, "pmax": 0, "all_gather": 0, "all_to_all": 0}
 
 
 def psum(x, axes: Axes, names):
@@ -73,6 +75,14 @@ def psum(x, axes: Axes, names):
         # collectives' all_reduce, whose backward is the same psum
         x = DF.all_reduce(x, group=axes.group(a))
     return x
+
+
+def pmax(x, axes: Axes, name: str):
+    """``lax.pmax`` over one axis; forward only (decode's combine)."""
+    import torch.distributed as dist
+
+    CALLS["pmax"] += 1
+    return DF.all_reduce(x, op=dist.ReduceOp.MAX, group=axes.group(name))
 
 
 def pmean(x, axes: Axes, names):
@@ -205,12 +215,19 @@ def _run_local(fn, args, specs, out_spec):
         return _enter(a, mesh, want)
 
     local = [enter(a, s) for a, s in zip(args, specs)]
+    # the results lie as the first argument entered on ``out_spec``: its
+    # spec comes from that argument's global shape (a result's local
+    # shape may not divide the mesh where the global one does)
+    ref = next((a.shape for a, (_, want) in zip(args, specs)
+                if want is out_spec and isinstance(a, torch.Tensor)), None)
 
     def wrap(o):
         if o is None:
             return None
         if isinstance(o, torch.Tensor):
-            return _leave(o, mesh, placements(out_spec(mesh, o.shape), mesh))
+            spec = out_spec(mesh, o.shape) if ref is None else \
+                out_spec(mesh, ref)[:o.dim()]
+            return _leave(o, mesh, placements(spec, mesh))
         return tuple(wrap(v) for v in o)
 
     return wrap(fn(*local))
@@ -245,26 +262,105 @@ def heads_spec(mesh, shape) -> tuple:
 
 def heads_local(fn, args, kinds: Sequence):
     """Attention on each rank's batch rows and its share of the heads.
-    ``kinds[i]``: ``"h"`` (batch dim 0, heads dim 2: q, k, v), ``"hw"``
-    (the same, written in place: a K/V cache), ``"b"`` / ``"bw"`` (batch
-    dim 0 only), ``"w1"`` (a weight with the heads on dim 1), ``None``
-    (replicated, or not a tensor). When ``heads_split`` holds for every
-    head count (q head h reads kv head h // (Hq // Hkv), so equal shares
-    keep each group whole) ``fn`` gets its rank's heads and its results
-    have them on dim 2; else ``fn`` gets every head, as ``batch_local``
-    gives them. A cache written in place must already lie as ``fn`` gets
-    it (``model.init_cache`` places it by ``heads_split``)."""
+    ``kinds[i]``: ``"h"`` (batch dim 0, heads dim 2: q, k, v), ``"b"``
+    (batch dim 0 only), ``None`` (replicated, or not a tensor). When
+    ``heads_split`` holds for every head count (q head h reads kv head
+    h // (Hq // Hkv), so equal shares keep each group whole) ``fn`` gets
+    its rank's heads and its results have them on dim 2; else ``fn`` gets
+    every head, as ``batch_local`` gives them. (Decode against a cache
+    runs on the cache's positions instead: ``seq_local``.)"""
     mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
     if mesh is None:
         return fn(*args)
     split = heads_split(mesh, *(a.shape[2] for a, k in zip(args, kinds)
-                                if k in ("h", "hw")))
-
-    def w1(mesh, shape):
-        return (None, "model") if split else ()
-
+                                if k == "h"))
     head = heads_spec if split else batch_spec
-    table = {"h": ("any", head), "hw": ("same", head),
-             "b": ("any", batch_spec), "bw": ("same", batch_spec),
-             "w1": ("any", w1), None: ("any", _whole)}
+    table = {"h": ("any", head), "b": ("any", batch_spec),
+             None: ("any", _whole)}
     return _run_local(fn, args, [table[k] for k in kinds], head)
+
+
+# ---------------------------------------------------------------------------
+# a sequence-sharded cache (flash-decode)
+# ---------------------------------------------------------------------------
+
+
+def seq_split(mesh, length: int) -> bool:
+    """Whether a cache of ``length`` positions lies split over ``model``:
+    the model axis has more than one rank and divides it (else the cache
+    is whole on every model rank, as ``_trim_indivisible`` places it)."""
+    n = mesh_axes(mesh).get("model", 1)
+    return n > 1 and length % n == 0
+
+
+def seq_spec(mesh, shape) -> tuple:
+    """``batch_spec`` with dim 1 (a cache's positions) over model where
+    it divides (``models.model.cache_logical_axes``' ``kv_seq``)."""
+    parts = list(batch_spec(mesh, shape)) or [None]
+    if "model" not in mesh_axes(mesh):
+        return tuple(parts)
+    return _trim_indivisible(tuple(parts) + ("model",), shape, mesh)
+
+
+class SeqShard:
+    """This rank's share of a cache's positions, inside ``seq_local``'s
+    body: ``offset`` is the first position it holds. Off a split cache
+    (no mesh, or a cache whole on every model rank) the share is the
+    whole cache and ``combine`` only normalises."""
+
+    def __init__(self, axes: Axes = None, offset: int = 0):
+        self.axes, self.offset = axes, offset
+
+    @property
+    def split(self) -> bool:
+        return self.axes is not None
+
+    def write(self, cache, new, start: int):
+        """Positions ``[start, start + new.shape[1])`` of ``new`` into the
+        rank's share of ``cache`` (dim 1), in place: only the rank holding
+        a position writes it."""
+        n, t = new.shape[1], cache.shape[1]
+        lo, hi = max(start, self.offset), min(start + n, self.offset + t)
+        if lo < hi:
+            cache[:, lo - self.offset:hi - self.offset] = \
+                new[:, lo - start:hi - start]
+
+    def combine(self, m, l, o):
+        """The attention over every rank's share from each rank's partial
+        softmax: ``m`` the max of its scores, ``l`` the sum of their
+        exponentials past ``m``, ``o`` (``m``'s shape plus the value dim)
+        the unnormalised output. One ``pmax`` of the maxes, then one
+        ``psum`` of the rescaled outputs and sums over model."""
+        if not self.split:
+            return o / l[..., None]
+        scale = torch.exp(m - pmax(m, self.axes, "model"))
+        both = torch.cat([o * scale[..., None], (l * scale)[..., None]], -1)
+        both = psum(both, self.axes, "model")
+        return both[..., :-1] / both[..., -1:]
+
+
+def seq_local(fn, args, kinds: Sequence):
+    """``fn(seq, *local)`` on each rank's batch rows and its share of a
+    cache's positions: ``kinds[i]`` is ``"b"`` (batch dim 0: the new
+    tokens' q, k, v), ``"sw"`` (a cache written in place, batch dim 0 and
+    positions dim 1, already lying on ``seq_spec``: ``model.init_cache``
+    places it so) or ``None`` (replicated, or not a tensor). ``seq`` is
+    the rank's ``SeqShard``; results have the batch on dim 0 and are
+    whole over model (``seq.combine`` makes them so). Without a DTensor
+    argument ``fn(SeqShard(), *args)``."""
+    mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
+    if mesh is None:
+        return fn(SeqShard(), *args)
+    length = next(a.shape[1] for a, k in zip(args, kinds) if k == "sw")
+    split = seq_split(mesh, length)
+
+    def body(*local):
+        if not split:
+            return fn(SeqShard(), *local)
+        axes = Axes(mesh)
+        share = next(a.shape[1] for a, k in zip(local, kinds) if k == "sw")
+        return fn(SeqShard(axes, axes.index("model") * share), *local)
+
+    table = {"b": ("any", batch_spec), "sw": ("same", seq_spec),
+             None: ("any", _whole)}
+    return _run_local(body, args, [table[k] for k in kinds], batch_spec)

@@ -174,16 +174,49 @@ class Sharding:
 
     def place(self, t: torch.Tensor):
         """``t`` (the full tensor, the same on every rank) as a DTensor on
-        this sharding; a DTensor is redistributed."""
+        this sharding; a DTensor is redistributed. A "meta" tensor (the
+        dry-run's) becomes a DTensor of meta shards of this rank's shape:
+        nothing is allocated and no collective is issued."""
         from torch.distributed.tensor import DTensor, distribute_tensor
 
         if isinstance(t, DTensor):
             return t.redistribute(self.mesh, self.placements)
+        if t.device.type == "meta":
+            return meta_dtensor(t.shape, t.dtype, self.mesh, self.placements)
         return distribute_tensor(t.to(self.mesh.device_type), self.mesh,
                                  self.placements)
 
     def __repr__(self):
         return f"Sharding({self.spec}, {self.placements})"
+
+
+def local_shape(shape, mesh, pls) -> tuple:
+    """The shape of this rank's shard of a ``shape`` tensor on placements
+    ``pls``: DTensor's ``torch.chunk`` split, mesh dim by mesh dim."""
+    out = list(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pls):
+        if p.is_shard():
+            n, d = mesh.size(i), p.dim
+            chunk = -(-out[d] // n)
+            out[d] = max(min(chunk, out[d] - coord[i] * chunk), 0)
+    return tuple(out)
+
+
+def meta_dtensor(shape, dtype, mesh, pls):
+    """A DTensor of ``shape`` on ``pls`` whose local shard is a "meta"
+    tensor: shapes, dtypes and strides without storage (the dry-run's
+    stand-in for an allocated tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    local = torch.empty(local_shape(shape, mesh, pls), dtype=dtype,
+                        device="meta")
+    stride, step = [], 1
+    for n in reversed(shape):       # contiguous, as the global tensor's
+        stride.insert(0, step)
+        step *= max(n, 1)
+    return DTensor.from_local(local, mesh, pls, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def spec_tree_to_shardings(specs, mesh, rules=None):
@@ -272,6 +305,19 @@ def placed_like(t, like):
 
 def named_sharding(mesh, *parts) -> Sharding:
     return Sharding(mesh, parts)
+
+
+def split_heads(t, h: int, hd: int, seq_axis: str, *heads: int):
+    """(B, S, h * hd) -> (B, S, h, hd). On a mesh whose model axis does
+    not divide every head count the projection's last dim (sharded over
+    model) is gathered first: DTensor cannot split a dim sharded 16 ways
+    into 8 or 24 heads, and the attention then runs on every head
+    (``shard_map.heads_local``)."""
+    if is_dtensor(t):
+        n = mesh_axes(t.device_mesh).get("model", 1)
+        if n > 1 and any(c % n for c in heads):
+            t = constrain(t, ("batch", seq_axis, None))
+    return t.reshape(t.shape[0], t.shape[1], h, hd)
 
 
 def gathered(w, logical_axes):

@@ -29,7 +29,7 @@ from repro_torch.models import recurrent as REC
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.shard_map import batch_local
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, split_heads
 
 
 # ---------------------------------------------------------------------------
@@ -45,13 +45,12 @@ def _rolling_attn_decode(cfg, p, x, cache_k, cache_v, slot_pos, index: int):
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     w = cache_k.shape[1]
     pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
-    q = (x @ p["wq"]).reshape(b, 1, hq, hd)
-    k = (x @ p["wk"]).reshape(b, 1, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, 1, hkv, hd)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
-        q = q + p["bq"].reshape(1, 1, hq, hd)
-        k = k + p["bk"].reshape(1, 1, hkv, hd)
-        v = v + p["bv"].reshape(1, 1, hkv, hd)
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = split_heads(q, hq, hd, None, hq, hkv)
+    k = split_heads(k, hkv, hd, None, hq, hkv)
+    v = split_heads(v, hkv, hd, None, hq, hkv)
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
     slot = index % w

@@ -71,6 +71,10 @@ def _mtp_loss(cfg: ModelConfig, params, batch, hidden):
 def loss_fn(cfg: ModelConfig, tc: TrainConfig, params, batch, mesh=None):
     """(total loss, {"ce", "aux"[, "mtp"]}): CE plus ``aux_loss_weight``
     times the MoE balance loss, plus ``mtp_weight`` times the MTP loss."""
+    if mesh is not None:
+        # the labels too: a plain (replicated) label tensor would make
+        # DTensor gather every rank's logits for the loss
+        batch = SH.place_batch(batch, mesh)
     want_hidden = bool(cfg.mtp_depth)
     out, aux = M.forward(cfg, params, batch, mesh, return_hidden=want_hidden)
     lgts = M.unembed_logits(cfg, params, out) if want_hidden else out

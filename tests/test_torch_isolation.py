@@ -2,9 +2,10 @@
 chip_smoke.py imports JAX or the JAX package, and the port serves on the
 CPU, through an engine, through the registry and the gateway, and through
 a gateway's worker process, builds a dataset, trains, runs a flywheel
-tick, serves a dense and a moe LM through ``repro_torch.launch.serve`` and
-trains one through ``repro_torch.launch.train``, in processes where
-importing either would fail."""
+tick, serves a dense and a moe LM through ``repro_torch.launch.serve``,
+trains one through ``repro_torch.launch.train`` and traces a dry-run cell
+through ``repro_torch.launch.dryrun``, in processes where importing
+either would fail."""
 import ast
 import os
 import subprocess
@@ -137,6 +138,14 @@ from repro_torch.launch import train as lm_train
 hist = lm_train.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                       "--steps", "3", "--batch", "2", "--seq", "16"])
 assert hist[-1]["step"] == 3
+# the dry-run: one decode cell at the smoke size on a fake 16x16 mesh
+from repro_torch.configs.base import ShapeConfig, get_config as lm_config
+from repro_torch.launch import dryrun
+cell = dryrun.trace_cell(
+    "granite-moe-3b-a800m", "decode_32k", device="cpu",
+    cfg=lm_config("granite-moe-3b-a800m").reduce(),
+    shape=ShapeConfig("decode_32k", 32, 128, "decode"))
+assert cell["flops_per_device"] > 0 and cell["chips"] == 256
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("served", [round(r.compliance, 3) for r in done + got + [far]])

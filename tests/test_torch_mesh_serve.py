@@ -83,18 +83,21 @@ HEADS_SEEN = {"granite-8b": [2], "deepseek-v3-671b": [2],
 
 @pytest.mark.parametrize("name", NAMES)
 def test_attention_on_a_share_of_the_heads(mesh_tokens, name):
-    """The attention runs on each rank's share of the heads where the
-    model axis divides both head counts (recurrentgemma's one kv head
-    does not), and the K/V caches it writes hold that share: each rank's
-    cache is a quarter of the whole (half the rows, half the heads)."""
+    """The prefill's attention runs on each rank's share of the heads
+    where the model axis divides both head counts (recurrentgemma's one
+    kv head does not). The K/V caches lie as the reference's dry-run
+    places them (``cache_logical_axes``): each rank holds a quarter of
+    the whole, half the rows and half the positions with every kv head;
+    the hybrid's rolling window only half the rows."""
     cfg = get_config(name).reduce()
     np.testing.assert_array_equal(mesh_tokens[f"heads_seen/{name}"],
                                   HEADS_SEEN[name])
-    split = HEADS_SEEN[name] == [cfg.num_heads // 2]
     for shape in mesh_tokens[f"cache_local/{name}"]:
         if shape[0]:
             assert shape[1] == 2        # 4 rows over data
-            assert shape[3] == cfg.num_kv_heads // (2 if split else 1)
+            window = cfg.family == "hybrid"
+            assert shape[2] == (cfg.attn_window if window else 32 // 2)
+            assert shape[3] == cfg.num_kv_heads
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -173,3 +173,135 @@ def test_constants_round_to_the_dtype():
     assert TR._const(0.044715, x) == 0.044677734375
     assert TR._const(math.sqrt(2 / math.pi), x) == 0.796875
     assert TR._const(0.044715, x.float()) == float(np.float32(0.044715))
+
+
+# ---------------------------------------------------------------------------
+# The sLSTM step's fp32 ops against XLA's, one op at a time (ROADMAP §C)
+# ---------------------------------------------------------------------------
+
+
+def _ulps(a, b):
+    """(largest distance in fp32 ulps, elements that differ)."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    ia = a.view(np.int32).astype(np.int64)
+    ib = b.view(np.int32).astype(np.int64)
+    return int(np.abs(ia - ib).max()), int((a != b).sum())
+
+
+def test_slstm_step_fp32_ops_against_xla():
+    """The setup of ``test_loss_decreases_bf16_xlstm``: the JAX package's
+    weights at ``reduce()``, the trainer's first batch (2 x 32), the first
+    sLSTM block's fp32 step loop, teacher-forced from the JAX package's op
+    by op state at every step. Measured against that op by op run: the
+    port's recurrent product and pre-activations are bitwise; its
+    elementwise functions part by a few fp32 ulps (torch's tanh, sigmoid,
+    log-sigmoid and exp are not XLA's approximations: tanh by up to 4
+    ulps in about half the elements), and the state by up to 2,048 ulps
+    in c. The compiled step parts from the same op by op run more: in
+    the recurrent product already (its fusion sums in another order) and
+    by up to 6,144 ulps in c. The stabilised gates' exp and log alone are
+    the same bits compiled and op by op; ``a * b + c * d``, the form of
+    the state updates, is not (XLA's fusion contracts it into fused
+    multiply-adds). The JAX package run op by op rises over the 3 steps
+    as the port does, so the port cannot follow the compiled trajectory
+    op by op: ROADMAP §C, "Conditioning, measured"."""
+    from repro.models import layers as JL
+    from repro_torch.data.pipeline import TokenPipeline
+
+    b, s = 2, 32
+    cfg = get_config("xlstm-1.3b").reduce()
+    jc = jget_config("xlstm-1.3b").reduce()
+    jp = jmaterialize(JM.param_specs(jc), jax.random.key(0))
+    toks = TokenPipeline(cfg, b, s).next_batch()["tokens"]
+    p = jax.tree.map(lambda a: a[0], jp["superblocks"]["slstm"])
+    x = jnp.take(jp["embed"], jnp.asarray(toks), axis=0)
+    with jax.disable_jit():
+        wx = (JL.rms_norm(x, p["ln"], jc.norm_eps) @ p["w_zifo"]).astype(
+            jnp.float32)
+    r = p["r_zifo"].astype(jnp.float32)
+    d, nh = jc.d_model, jc.num_heads
+    dh = d // nh
+
+    def ops_jax(h, c, n, m, w):
+        rh = jnp.einsum("bhk,hkj->bhj", h.reshape(b, nh, dh), r)
+        pre = w + rh.reshape(b, nh, 4, dh).transpose(0, 2, 1, 3).reshape(
+            b, 4 * d)
+        z, i_pre, f_pre, o = jnp.split(pre, 4, axis=-1)
+        z, o = jnp.tanh(z), jax.nn.sigmoid(o)
+        log_f = jax.nn.log_sigmoid(f_pre)
+        m_new = jnp.maximum(log_f + m, i_pre)
+        i_g = jnp.exp(i_pre - m_new)
+        f_g = jnp.exp(log_f + m - m_new)
+        c = f_g * c + i_g * z
+        n = f_g * n + i_g
+        h = o * c / jnp.maximum(jnp.abs(n), 1.0)
+        return dict(pre=pre, z=z, o=o, log_f=log_f, m=m_new, i_g=i_g,
+                    f_g=f_g, c=c, n=n, h=h)
+
+    def ops_port(h, c, n, m, w):
+        rt = torch.from_numpy(np.asarray(r))
+        rh = torch.einsum("bhk,hkj->bhj", h.reshape(b, nh, dh), rt)
+        pre = w + TR._global_gates(rh)
+        z, i_pre, f_pre, o = pre.chunk(4, dim=-1)
+        z, o = torch.tanh(z), torch.sigmoid(o)
+        log_f = F.logsigmoid(f_pre)
+        m_new = torch.maximum(log_f + m, i_pre)
+        i_g = torch.exp(i_pre - m_new)
+        f_g = torch.exp(log_f + m - m_new)
+        c = f_g * c + i_g * z
+        n = f_g * n + i_g
+        h = o * c / torch.clamp(n.abs(), min=1.0)
+        return dict(pre=pre, z=z, o=o, log_f=log_f, m=m_new, i_g=i_g,
+                    f_g=f_g, c=c, n=n, h=h)
+
+    compiled = jax.jit(ops_jax)
+    port, fused = {}, {}
+    state = [jnp.zeros((b, d), jnp.float32) for _ in range(4)]
+    for t in range(s):
+        with jax.disable_jit():
+            eager = ops_jax(*state, wx[:, t])
+        got = ops_port(*[torch.from_numpy(np.array(v)) for v in state],
+                       torch.from_numpy(np.array(wx[:, t])))
+        comp = compiled(*state, wx[:, t])
+        for k in eager:
+            for out, other in ((port, got[k].numpy()), (fused, comp[k])):
+                u, nd = _ulps(eager[k], other)
+                was = out.get(k, (0, 0))
+                out[k] = (max(was[0], u), was[1] + nd)
+        state = [eager["h"], eager["c"], eager["n"], eager["m"]]
+    print("port vs op by op", port)
+    print("compiled vs op by op", fused)
+    assert port["pre"] == (0, 0)
+    assert port["z"][0] <= 4 and port["o"][0] <= 2 and port["log_f"][0] <= 2
+    # the compiled step parts already in the recurrent product, and in
+    # the state more than the port does
+    assert fused["pre"][1] > 0
+    for k in ("c", "h"):
+        assert fused[k][0] > port[k][0], (k, fused[k], port[k])
+
+    # the stabilised gates alone (log-sigmoid, max, exp), on the last
+    # step's own pre-activations: the same bits compiled and op by op
+    def gates(f_pre, m, i_pre):
+        log_f = jax.nn.log_sigmoid(f_pre)
+        m_new = jnp.maximum(log_f + m, i_pre)
+        return log_f, m_new, jnp.exp(i_pre - m_new), jnp.exp(log_f + m
+                                                             - m_new)
+
+    _, i_pre, f_pre, _ = jnp.split(eager["pre"], 4, axis=-1)
+    with jax.disable_jit():
+        plain = gates(f_pre, state[3], i_pre)
+    for a, b in zip(plain, jax.jit(gates)(f_pre, state[3], i_pre)):
+        assert _ulps(a, b) == (0, 0)
+    # and a * b + c * d, which the compiled fusion contracts into fused
+    # multiply-adds
+    rng = np.random.default_rng(0)
+    a = [jnp.asarray(rng.standard_normal(4096).astype(np.float32))
+         for _ in range(4)]
+
+    def fma(a, b, c, d):
+        return a * b + c * d
+
+    with jax.disable_jit():
+        plain = np.asarray(fma(*a))
+    assert (np.asarray(jax.jit(fma)(*a)) != plain).mean() > 0.1
